@@ -2,19 +2,29 @@
 
 Mirrors the module paths and public names of the JAX package
 (``import dprox_tpu_torch as dp``; ``dp.Variable``, ``dp.conv``,
-``dp.sum_squares``, ``dp.deep_prior``, ``dp.compile``, ``dp.log_descent``)
+``dp.sum_squares``, ``dp.nonneg``, ``dp.deep_prior``, ``dp.compile``,
+``dp.LinearSolveConfig``, ``dp.log_descent``)
 with PyTorch idiom: tensors, ``nn.Module`` denoisers, an eager solver
 loop and an explicit ``device`` (default ``"cuda"``; asking for CUDA
 without a GPU raises). The hot kernels are hand-written for Hopper
-(``ops/kernels.py``, sources in ``csrc/``). Ported so far: PnP-ADMM
-deconvolution with the flagship ``distilled_color_tv`` prior.
+(``ops/kernels.py``, sources in ``csrc/``). Ported so far, all under
+``admm``: PnP deconvolution with the flagship ``distilled_color_tv``
+prior; deconvolution with ``nonneg`` / ``norm1`` / ``norm2`` (the
+``fused_admm_update`` kernel); spatially diagonal x-updates (demosaic);
+and the CG x-update for objectives no transform diagonalizes (joint
+demosaic + deconvolution: ``mosaic(conv(x))``), with the differentiable
+``linear_solve``, the solvers of ``linalg`` and the ``bdot`` and
+``fused_cg_tail`` kernels.
 """
 
 __version__ = "0.1.0"
 
-from . import algo, linop, ops, proxfn, utils
+from . import algo, linalg, linop, ops, proxfn, utils
 from .algo import ADMM, Algorithm, compile, log_descent
-from .linop import (Constant, LinOp, Variable, adjoint, conv, est_norm, eval,
-                    gram, scale, sum, validate, vstack)
-from .proxfn import ProxFn, deep_prior, get_denoiser, least_squares, sum_squares
+from .linalg import LinearSolveConfig, linear_solve
+from .linop import (Constant, LinOp, Placeholder, Variable, adjoint, conv, est_norm,
+                    eval, grad, gram, mosaic, mul_elementwise, scale, sum, validate,
+                    vstack)
+from .proxfn import (ProxFn, deep_prior, get_denoiser, least_squares, nonneg, norm1,
+                     norm2, sum_squares)
 from .utils.misc import to_tensor as tensor

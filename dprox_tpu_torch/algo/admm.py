@@ -3,7 +3,9 @@
 Counterpart of dprox_tpu/algo/admm.py::ADMM. Partition rule: plain
 ``sum_squares`` go to the omega (data) set solved in the x-update;
 everything else becomes a psi block with consensus variables (v_i, u_i).
-State = (x, v_tuple, u_tuple).
+State = (x, v_tuple, u_tuple). The (v_i, u_i) update of a plain ``nonneg``
+or ``norm1`` block runs as one ``fused_admm_update`` kernel, which
+computes exactly what the generic prox + dual update computes.
 """
 from __future__ import annotations
 
@@ -11,7 +13,10 @@ from typing import List
 
 import torch
 
+from ..linalg import LinearSolveConfig
+from ..ops.kernels import fused_admm_update
 from ..proxfn.base import ProxFn
+from ..proxfn.simple import nonneg, norm1
 from ..proxfn.sum_squares import sum_squares
 from .base import Algorithm
 from .invert import get_least_square_solver
@@ -24,9 +29,13 @@ class ADMM(Algorithm):
         psi_fns = [fn for fn in prox_fns if fn not in omega_fns]
         return psi_fns, omega_fns
 
-    def __init__(self, psi_fns, omega_fns, device="cuda"):
+    def __init__(self, psi_fns, omega_fns, try_diagonalize=True,
+                 try_freq_diagonalize=True,
+                 linear_solve_config: LinearSolveConfig = None, device="cuda"):
         super().__init__(psi_fns, omega_fns, device=device)
-        self.least_square = get_least_square_solver(self.psi_fns, self.omega_fns)
+        self.least_square = get_least_square_solver(
+            self.psi_fns, self.omega_fns, try_diagonalize, try_freq_diagonalize,
+            linear_solve_config or LinearSolveConfig())
 
     def initialize(self, x0, params, v=None):
         if v is None:
@@ -43,11 +52,26 @@ class ADMM(Algorithm):
         Kx = self.K_forward(x, params)
         v_new, u_new = [], []
         for i, fn in enumerate(self.psi_fns):
-            vi = fn.prox(Kx[i] + u[i], lam[i], params=params, step=step,
-                         offset=aux.offsets[i]).to(Kx[i].dtype)
+            kind = self._fused_kind(fn, aux.offsets[i])
+            if kind is None:
+                vi = fn.prox(Kx[i] + u[i], lam[i], params=params, step=step,
+                             offset=aux.offsets[i]).to(Kx[i].dtype)
+                ui = u[i] + Kx[i] - vi
+            else:  # alpha * f scales lam, as in ProxFn.prox; nonneg reads no lam
+                lam_i = lam[i] if kind == "nonneg" or fn.alpha == 1.0 else lam[i] * fn.alpha
+                vi, ui = fused_admm_update(Kx[i].contiguous(), u[i].contiguous(), lam_i, kind)
             v_new.append(vi)
-            u_new.append(u[i] + Kx[i] - vi)
+            u_new.append(ui)
         return (x, tuple(v_new), tuple(u_new))
+
+    @staticmethod
+    def _fused_kind(fn, offset):
+        """``fused_admm_update``'s kind for a psi fn whose (v, u) update it
+        computes exactly: an untranslated ``nonneg`` or ``norm1`` with
+        beta == 1. None for every other fn (generic prox + dual update)."""
+        if offset is not None or fn.beta != 1.0:
+            return None
+        return {nonneg: "nonneg", norm1: "soft"}.get(type(fn))
 
     def residuals(self, prev_state, state, rho, params):
         """Scaled-ADMM residuals (Boyd et al. §3.3), relative:

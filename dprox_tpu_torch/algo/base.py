@@ -135,7 +135,10 @@ class Algorithm:
         orig_shape = tuple(x0.shape) if hasattr(x0, "shape") else None
         x0 = self._prepare_x0(x0)
         rhos, lam_list = self.defaults(rhos, lams, max_iter)
-        params = dict(params) if params else {}
+        # placeholder values go to the solver's device once, not per iteration
+        params = {k: to_tensor(v, device=self.device)
+                  if isinstance(v, (np.ndarray, torch.Tensor)) else v
+                  for k, v in (params or {}).items()}
         state = self.initialize(x0, params)
         aux = self.prepare_aux(x0, params)
         for it in range(max_iter):

@@ -9,5 +9,7 @@ from __future__ import annotations
 from ..proxfn.sum_squares import least_squares
 
 
-def get_least_square_solver(psi_fns, omega_fns):
-    return least_squares(omega_fns, psi_fns)
+def get_least_square_solver(psi_fns, omega_fns, try_diagonalize=True,
+                            try_freq_diagonalize=True, linear_solve_config=None):
+    return least_squares(omega_fns, psi_fns, try_diagonalize, try_freq_diagonalize,
+                         linear_solve_config=linear_solve_config)

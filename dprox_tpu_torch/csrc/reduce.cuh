@@ -1,0 +1,86 @@
+// Deterministic per-batch-row reductions shared by bdot.cu and cg_tail.cu.
+//
+// A row of D floats is reduced in two fixed-order steps: `reduce_blocks(D)`
+// blocks each write one partial sum of their grid-stride share of the row to
+// a workspace, and whoever needs the row's total sums the partials with
+// `reduce_partials`. No atomics: the order of every addition depends only on
+// D and the launch geometry, so two runs give the same bits, and every block
+// that sums the same partials gets the same total. Accumulation is float32.
+// Compiled with --fmad=false: a product and its accumulation round
+// separately, as in the unfused PyTorch version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace dprox {
+
+constexpr int THREADS = 256;
+constexpr int ELEMS_PER_BLOCK = 2048;  // two float4 loads per thread and array
+constexpr int MAX_BLOCKS = 1024;       // per row; grid-stride beyond this
+
+// Blocks that share one row of D elements (also the row's partial count).
+inline int reduce_blocks(long long D) {
+  long long n = (D + ELEMS_PER_BLOCK - 1) / ELEMS_PER_BLOCK;
+  if (n < 1) n = 1;
+  return (int)(n < MAX_BLOCKS ? n : MAX_BLOCKS);
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// max(v, lo) that lets NaN through, as torch.clamp(min=lo) does.
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return v < lo ? lo : v;
+}
+
+// Sum of `v` over the block, returned to every thread. Warp shuffles, then
+// one slot per warp in `smem` (>= 32 floats), added in warp order.
+__device__ __forceinline__ float block_sum(float v, float* smem) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  __syncthreads();  // smem may still be read from an earlier call
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += smem[w];
+  return total;
+}
+
+// Sum of a row's `n` partials, the same value in every thread of every block.
+__device__ __forceinline__ float reduce_partials(const float* partial, int n,
+                                                 float* smem) {
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partial[i];
+  return block_sum(acc, smem);
+}
+
+// partial[row * gridDim.x + blockIdx.x] = this block's share of <a_row, b_row>.
+// Grid (reduce_blocks(D), B). VEC: D % 4 == 0 and both bases 16-byte aligned.
+template <bool VEC>
+__global__ void dot_partial_kernel(const float* __restrict__ a,
+                                   const float* __restrict__ b,
+                                   float* __restrict__ partial, long long D) {
+  __shared__ float smem[32];
+  const long long base = (long long)blockIdx.y * D;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  float acc = 0.0f;
+  if (VEC) {
+    const float4* a4 = reinterpret_cast<const float4*>(a + base);
+    const float4* b4 = reinterpret_cast<const float4*>(b + base);
+    for (long long i = start; i < D / 4; i += step) {
+      const float4 x = a4[i], y = b4[i];
+      acc += x.x * y.x;
+      acc += x.y * y.y;
+      acc += x.z * y.z;
+      acc += x.w * y.w;
+    }
+  } else {
+    for (long long i = start; i < D; i += step) acc += a[base + i] * b[base + i];
+  }
+  const float total = block_sum(acc, smem);
+  if (threadIdx.x == 0) partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = total;
+}
+
+}  // namespace dprox

@@ -1,3 +1,3 @@
-from .base import LinOp, Variable, Constant, scale, sum, vstack
-from .ops import conv
+from .base import LinOp, Variable, Constant, Placeholder, scale, sum, vstack
+from .ops import conv, grad, mosaic, mul_elementwise
 from .evaluate import eval, adjoint, gram, validate, est_norm

@@ -156,6 +156,35 @@ class LinOp:
         return torch.abs(torch.conj(d) * d)
 
     # ------------------------------------------------------------------ #
+    # Frequency-circulant gram surrogate (preconditioning)
+    # ------------------------------------------------------------------ #
+
+    def _own_gram_surrogate(self, shape, params: Optional[Params] = None):
+        """Circulant approximation of THIS op's gram factor in the
+        frequency domain (children excluded): exact for freq-diagonal ops,
+        the per-channel spatial average for spatially-diagonal ops, None
+        when there is no sensible surrogate (which disables
+        preconditioning for the tree)."""
+        return None
+
+    def gram_freq_surrogate(self, shape, params: Optional[Params] = None):
+        """Approximate frequency-domain diagonal of this subtree's gram
+        K^T K, the Jacobi-in-frequency preconditioner of the CG x-update.
+        A chain multiplies its factors' surrogates (exact when every
+        factor is circulant, an average otherwise). None when any factor
+        has no surrogate."""
+        own = self._own_gram_surrogate(shape, params)
+        if own is None:
+            return None
+        out = own
+        for c in self.children:
+            cs = c.gram_freq_surrogate(shape, params)
+            if cs is None:
+                return None
+            out = out * cs
+        return out
+
+    # ------------------------------------------------------------------ #
     # Operator algebra
     # ------------------------------------------------------------------ #
 
@@ -224,6 +253,9 @@ class Variable(LinOp):
     def diag(self, shape, params=None, freq: bool = False):
         return torch.ones((), dtype=torch.float32, device=self.device)
 
+    def _own_gram_surrogate(self, shape, params=None):
+        return 1.0
+
     def __repr__(self):
         return f"Variable(name={self.name}, shape={self.shape})"
 
@@ -262,6 +294,45 @@ class Constant(LinOp):
         return f"Constant(shape={tuple(self.value.shape)})"
 
 
+class Placeholder(LinOp):
+    """Named runtime constant; its value is the entry of ``params`` under
+    its name at call time, so it can change per solve (an observation, a
+    learned PSF) and receive gradients."""
+
+    def __init__(self, name: Optional[str] = None, batch: bool = True):
+        super().__init__([])
+        self.name = name if name is not None else f"ph{self.linop_id}"
+        self.batch = batch
+
+    def value(self, params: Optional[Params]):
+        if params is None or self.name not in params:
+            raise KeyError(
+                f"Placeholder '{self.name}' has no value; pass params={{'{self.name}': ...}}")
+        return to_tensor(params[self.name], batch=self.batch, device=self.device)
+
+    def forward(self, inputs, params=None, zero_constants=False, cache=None):
+        v = self.value(params)
+        if zero_constants:
+            return torch.zeros_like(v)
+        return v
+
+    def adjoint_into(self, y, params, acc):
+        pass
+
+    @property
+    def constants(self):
+        return [self]
+
+    def is_diag(self, freq: bool = False) -> bool:
+        return True
+
+    def diag(self, shape, params=None, freq: bool = False):
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def __repr__(self):
+        return f"Placeholder(name={self.name})"
+
+
 class scale(LinOp):
     """Multiplication by a fixed scalar."""
 
@@ -289,6 +360,9 @@ class scale(LinOp):
     def gram_diag(self, shape, params=None, freq: bool = False):
         return self.children[0].gram_diag(shape, params, freq) * (self.scalar**2)
 
+    def _own_gram_surrogate(self, shape, params=None):
+        return self.scalar ** 2
+
 
 class sum(LinOp):
     """Sum of N inputs; adjoint broadcasts."""
@@ -315,6 +389,15 @@ class sum(LinOp):
             out = d if out is None else out + d
         return out
 
+    def gram_freq_surrogate(self, shape, params=None):
+        # constants (offsets like ``conv(x) - b``) add nothing to the
+        # variable gram; cross terms of more than one variable branch have
+        # no circulant surrogate
+        live = [c for c in self.children if not c.is_constant()]
+        if len(live) != 1:
+            return None
+        return live[0].gram_freq_surrogate(shape, params)
+
 
 class vstack(LinOp):
     """Stack of independent operator branches; the solvers work on
@@ -329,4 +412,14 @@ class vstack(LinOp):
         for c in self.children:
             d = c.gram_diag(shape, params, freq)
             out = d if out is None else out + d
+        return out
+
+    def gram_freq_surrogate(self, shape, params=None):
+        # the gram of a stack is the sum of the per-branch grams
+        out = None
+        for c in self.children:
+            s = c.gram_freq_surrogate(shape, params)
+            if s is None:
+                return None
+            out = s if out is None else out + s
         return out

@@ -6,9 +6,8 @@ exposes
 
     prox(v, lam) = argmin_x f(x) + 1/(2 lam) ||x - v||^2
 
-composed from the raw ``_prox`` through two modifiers: alpha (scaled)
-and the offset b (translated). The JAX package's beta (affine) modifier
-has no user in the ported functions and is not ported.
+composed from the raw ``_prox`` through three modifiers: alpha (scaled),
+beta (affine) and the offset b (translated).
 """
 from __future__ import annotations
 
@@ -24,9 +23,10 @@ Array = torch.Tensor
 
 
 class ProxFn:
-    def __init__(self, linop: LinOp, alpha: float = 1.0):
+    def __init__(self, linop: LinOp, alpha: float = 1.0, beta: float = 1.0):
         self.linop = linop
         self.alpha = float(alpha)
+        self.beta = float(beta)
 
     def to(self, device) -> "ProxFn":
         """Move the function's data to ``device`` (in place); returns self."""
@@ -71,11 +71,19 @@ class ProxFn:
             var = self.linop.variables[0]
             offset = self.offset({var.name: v.shape}, params)
 
-        if self.alpha != 1.0:  # alpha * f
-            lam = lam * self.alpha
+        def scaled(v_, lam_):  # alpha * f
+            if self.alpha != 1.0:
+                lam_ = lam_ * self.alpha
+            return self._prox(v_, lam_, params=params, step=step)
+
+        def affine(v_, lam_):  # f(beta x)
+            if self.beta == 1.0:
+                return scaled(v_, lam_)
+            return (1.0 / self.beta) * scaled(self.beta * v_, self.beta * self.beta * lam_)
+
         if offset is None:  # translated: f(y - b)
-            return self._prox(v, lam, params=params, step=step)
-        return self._prox(v - offset, lam, params=params, step=step) + offset
+            return affine(v, lam)
+        return affine(v - offset, lam) + offset
 
     # ------------------------------------------------------------------ #
     # Algebra: scalar * fn sets alpha; fn + fn builds objective lists

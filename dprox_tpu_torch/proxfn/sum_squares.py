@@ -1,19 +1,29 @@
 """Quadratic proxfns and the least-squares x-update engine.
 
 Counterpart of dprox_tpu/proxfn/sum_squares.py (``sum_squares``,
-``least_squares`` with ``prepare`` / ``solve_direct`` /
-``_freq_xupdate``). The x-update of a frequency-diagonalizable stacked
-operator is a closed-form division, run as batched 2-D FFTs around the
-``freq_divide`` kernel (ops/kernels.py). The spatial-diagonal and CG
-x-updates (``solve_cg``) and ``ext_sum_squares`` are not ported yet.
+``least_squares`` with ``prepare`` / ``solve_direct`` / ``solve_cg`` /
+``_freq_xupdate``). The ``least_squares`` solve is the hot path of every
+proximal algorithm:
+
+* (freq-)diagonalizable stacked operator -> closed-form division, the
+  frequency case as batched 2-D FFTs around the ``freq_divide`` kernel
+  (ops/kernels.py);
+* otherwise -> matrix-free CG through ``linalg.linear_solve`` with
+  implicit gradients, preconditioned in the frequency domain when the
+  operator tree has a circulant surrogate.
+
+``ext_sum_squares``, ``weighted_sum_squares`` and ``sum_squares.grad``
+are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import torch
 
-from ..linop.base import LinOp, Params, vstack
+from ..linalg import LinearSolveConfig, linear_solve
+from ..linop.base import LinOp, Params, Placeholder, vstack
 from ..ops.kernels import freq_divide
 from ..utils.misc import expand_to_bchw, to_tensor
 from .base import Array, ProxFn
@@ -92,78 +102,127 @@ def _divisor(diag_quad, diag_psi, rho, with_v: bool):
     return diag, (rho if with_v else torch.zeros_like(rho))
 
 
+def _freq_jacobi_minv(theta, r):
+    """Preconditioner of the CG x-update: theta[2] is the
+    frequency-circulant surrogate diagonal of K^T K + rho terms
+    (least_squares.prepare); M^{-1} r = F^{-1}(F r / Mdiag)."""
+    out = _ifftn2(_fftn2(r) / theta[2])
+    return out if r.is_complex() else out.real.to(r.dtype)
+
+
 class sum_squares(ProxFn):
-    """||K x - b||^2."""
+    """||K x - b||^2; ``b`` may be an array or a ``Placeholder``."""
 
     def __init__(self, linop: LinOp, b=None, eps: float = 1e-7):
         super().__init__(linop)
         self.eps = eps
-        self._b = to_tensor(b, batch=True) if b is not None else None
+        self._b = b if b is None or isinstance(b, Placeholder) else to_tensor(b, batch=True)
 
     def to(self, device):
         super().to(device)
         if self._b is not None:
-            self._b = self._b.to(device)
+            self._b = self._b.to(device)  # a tensor, or a Placeholder's device
         return self
 
     def offset(self, var_shapes, params=None):
         if self._b is not None:
-            return self._b
+            return self.unwrap_b(params)
         return super().offset(var_shapes, params)
+
+    def unwrap_b(self, params: Optional[Params]):
+        if isinstance(self._b, Placeholder):
+            return self._b.value(params)
+        return self._b
 
     def _prox(self, v, lam, params=None, step=None):
         return v / (1.0 + 2.0 * lam)
 
 
 class least_squares(ProxFn):
-    """Stacked-quadratic x-update, solved directly in the frequency domain.
+    """Stacked-quadratic x-update with direct (spatial or frequency
+    diagonal) vs CG dispatch.
 
     quad_fns: the omega (data) terms whose offsets supply K^T b;
     other_fns: the psi terms contributing rho-weighted consensus blocks.
-    Only frequency-diagonal stacks are ported; the spatial-diagonal and
-    CG x-updates come in a later slice.
     """
 
-    def __init__(self, quad_fns: List[ProxFn], other_fns: List[ProxFn]):
+    def __init__(self, quad_fns: List[ProxFn], other_fns: List[ProxFn],
+                 try_diagonalize: bool = True, try_freq_diagonalize: bool = True,
+                 linear_solve_config: Optional[LinearSolveConfig] = None):
         self.quad_fns = list(quad_fns)
         self.other_fns = list(other_fns)
+        self.linear_solve_config = linear_solve_config or LinearSolveConfig()
         stacked = vstack([fn.linop for fn in self.quad_fns + self.other_fns])
-        if not (stacked.is_gram_diag(freq=True)
-                and all(fn.linop.is_diag(freq=True) for fn in self.quad_fns)):
-            raise NotImplementedError(
-                "only the frequency-diagonal x-update is ported; this objective "
-                "needs the spatial-diagonal or CG x-update")
-        self.freq_diagonalizable = True
+        self.diagonalizable = stacked.is_gram_diag(freq=False) and try_diagonalize
+        self.freq_diagonalizable = (stacked.is_gram_diag(freq=True) and try_diagonalize
+                                    and try_freq_diagonalize)
         super().__init__(stacked)
+
+    def _prox(self, v, lam, params=None, step=None):
+        return self.solve([], lam, v=v, params=params)
 
     def prepare(self, var_shapes, params=None, ref_shape=None):
         """Hoist iteration-invariant work out of the solver loop: K^T b of
-        the quadratic terms and the gram diagonals.
+        the quadratic terms, the gram diagonals of a direct solve, or the
+        preconditioner surrogates of a CG solve.
 
-        K^T b is hoisted IN THE FREQUENCY DOMAIN as conj(H)*F(b), never
-        ifft->fft roundtripped: the roundtrip's rounding error would later
-        be divided by (|H|^2 + rho), which amplifies it ~1/rho where the
-        OTF vanishes (DPIR schedules start at rho ~ 1e-6); multiplying by
-        conj(H) suppresses it exactly there.
+        On the frequency path K^T b is hoisted IN THE FREQUENCY DOMAIN as
+        conj(H)*F(b), never ifft->fft roundtripped: the roundtrip's
+        rounding error would later be divided by (|H|^2 + rho), which
+        amplifies it ~1/rho where the OTF vanishes (DPIR schedules start
+        at rho ~ 1e-6); multiplying by conj(H) suppresses it exactly there.
         """
-        freq_Ktb = None
-        for fn in self.quad_fns:
-            off = fn.offset(var_shapes, params)
-            if off is not None:
-                H = fn.linop.diag(tuple(off.shape), params, freq=True)
-                term = torch.conj(H) * _fftn2(off)
-                freq_Ktb = term if freq_Ktb is None else freq_Ktb + term
+        prepared = {}
+        freq_hoistable = (self.freq_diagonalizable
+                          and all(fn.linop.is_diag(freq=True) for fn in self.quad_fns))
+        if freq_hoistable:
+            freq_Ktb = None
+            for fn in self.quad_fns:
+                off = fn.offset(var_shapes, params)
+                if off is not None:
+                    H = fn.linop.diag(tuple(off.shape), params, freq=True)
+                    term = torch.conj(H) * _fftn2(off)
+                    freq_Ktb = term if freq_Ktb is None else freq_Ktb + term
+            prepared["freq_Ktb_quad"] = freq_Ktb
+        else:
+            Ktb_quad = 0.0
+            for fn in self.quad_fns:
+                off = fn.offset(var_shapes, params)
+                if off is not None:
+                    Ktb_quad = Ktb_quad + fn.dag_adjoint(off, params)
+            prepared["Ktb_quad"] = Ktb_quad
         if ref_shape is not None:
             shape = ref_shape
         else:
             shape = next(iter(var_shapes.values())) if var_shapes else ()
-        diag_quad = 0.0
-        for fn in self.quad_fns:
-            diag_quad = diag_quad + fn.linop.gram_diag(shape, params, True)
-        diag_psi = 0.0
-        for fn in self.other_fns:
-            diag_psi = diag_psi + fn.linop.gram_diag(shape, params, True)
-        return {"freq_Ktb_quad": freq_Ktb, "diag_quad": diag_quad, "diag_psi": diag_psi}
+        if self.diagonalizable or self.freq_diagonalizable:
+            freq = self.freq_diagonalizable
+            diag_quad = 0.0
+            for fn in self.quad_fns:
+                diag_quad = diag_quad + fn.linop.gram_diag(shape, params, freq)
+            diag_psi = 0.0
+            for fn in self.other_fns:
+                diag_psi = diag_psi + fn.linop.gram_diag(shape, params, freq)
+            prepared["diag_quad"] = diag_quad
+            prepared["diag_psi"] = diag_psi
+        elif shape:
+            # CG path: a frequency-circulant Jacobi preconditioner
+            # M = sum_quad surr(K^T K) + rho (sum_psi surr + 1); exact for
+            # circulant factors, spatially averaged for masks
+            pq, pp = 0.0, 0.0
+            for fn in self.quad_fns:
+                s = fn.linop.gram_freq_surrogate(shape, params)
+                if s is None:
+                    return prepared
+                pq = pq + s
+            for fn in self.other_fns:
+                s = fn.linop.gram_freq_surrogate(shape, params)
+                if s is None:
+                    return prepared
+                pp = pp + s
+            prepared["precond_quad"] = pq
+            prepared["precond_psi"] = pp
+        return prepared
 
     def _var_shapes(self, ref: Array, var_shapes=None):
         if var_shapes is not None:
@@ -174,35 +233,97 @@ class least_squares(ProxFn):
                 names.add(v.name)
         return {n: tuple(ref.shape) for n in names}
 
+    def _prepared(self, b, v, params, var_shapes, prepared):
+        if prepared is not None:
+            return prepared
+        ref = v if v is not None else b[0]
+        return self.prepare(self._var_shapes(ref, var_shapes), params,
+                            ref_shape=tuple(ref.shape))
+
+    def _spatial_ktb(self, prepared, b, rho, v, params):
+        """K^T b accumulation: hoisted quadratic part + rho-weighted psi
+        adjoints (+ rho v), in the JAX package's summation order."""
+        Ktb = prepared["Ktb_quad"]
+        for i, fn in enumerate(self.other_fns):
+            Ktb = Ktb + rho * fn.dag_adjoint(b[i], params)
+        if v is not None:
+            Ktb = Ktb + rho * v
+        return Ktb
+
     def solve(self, b: Sequence[Array], rho, v: Optional[Array] = None,
               params: Optional[Params] = None, eps: float = 1e-7,
               var_shapes=None, prepared=None, warm=None) -> Array:
-        """``warm`` is accepted for interface parity; the direct solve
-        ignores it."""
+        """``warm``: previous iterate to warm-start the CG path (the direct
+        path ignores it; no gradient flows through the warm start)."""
         ref = v if v is not None else (b[0] if b else None)
         if ref is None:
             raise ValueError("need b or v for shape inference")
         rho = expand_to_bchw(torch.as_tensor(rho, dtype=torch.float32, device=ref.device))
-        return self.solve_direct(b, rho, v, params, eps, var_shapes, prepared)
+        if self.diagonalizable or self.freq_diagonalizable:
+            return self.solve_direct(b, rho, v, params, eps, var_shapes, prepared)
+        return self.solve_cg(b, rho, v, params, var_shapes, prepared, warm)
 
     def solve_direct(self, b, rho, v=None, params=None, eps: float = 1e-7,
                      var_shapes=None, prepared=None) -> Array:
-        """``real(ifft2((conj(H)F(b) + F(rho * sum_i K_i^T b_i [+ rho v]) + eps)
-        / (diag_quad + rho*diag_psi [+ rho] + eps)))``. Without ``prepared``
-        the hoisted terms are computed here (the JAX package then takes its
-        spatial K^T b path instead; this port keeps the frequency one)."""
-        if prepared is None:
-            ref = v if v is not None else b[0]
-            prepared = self.prepare(self._var_shapes(ref, var_shapes), params,
-                                    ref_shape=tuple(ref.shape))
-        s = None
-        for i, fn in enumerate(self.other_fns):
-            term = rho * fn.dag_adjoint(b[i], params)
-            s = term if s is None else s + term
+        """Frequency-diagonal: ``real(ifft2((conj(H)F(b) + F(rho * sum_i
+        K_i^T b_i [+ rho v]) + eps) / (diag_quad + rho*diag_psi [+ rho] +
+        eps)))``; spatially diagonal: ``K^T b / (diag + eps)``. Without
+        ``prepared`` the hoisted terms are computed here."""
+        prepared = self._prepared(b, v, params, var_shapes, prepared)
+        if "freq_Ktb_quad" in prepared:
+            s = None
+            for i, fn in enumerate(self.other_fns):
+                term = rho * fn.dag_adjoint(b[i], params)
+                s = term if s is None else s + term
+            if v is not None:
+                s = rho * v if s is None else s + rho * v
+            diag, r = _divisor(prepared["diag_quad"], prepared["diag_psi"], rho, v is not None)
+            return _freq_xupdate(s, prepared["freq_Ktb_quad"], diag, r, eps).float()
+        Ktb = self._spatial_ktb(prepared, b, rho, v, params)
+        if self.freq_diagonalizable:
+            diag, r = _divisor(prepared["diag_quad"], prepared["diag_psi"], rho, v is not None)
+            return _freq_xupdate(Ktb, None, diag, r, eps).float()
+        diag = prepared["diag_quad"] + rho * prepared["diag_psi"]
         if v is not None:
-            s = rho * v if s is None else s + rho * v
-        diag, r = _divisor(prepared["diag_quad"], prepared["diag_psi"], rho, v is not None)
-        return _freq_xupdate(s, prepared["freq_Ktb_quad"], diag, r, eps).float()
+            diag = diag + rho
+        return (Ktb / (diag + eps)).float()
+
+    def solve_cg(self, b, rho, v=None, params=None, var_shapes=None,
+                 prepared=None, warm=None) -> Array:
+        """Matrix-free (preconditioned) CG on ``sum_quad K^T K + rho sum_psi
+        K^T K [+ rho]``, differentiable through ``linear_solve``."""
+        prepared = self._prepared(b, v, params, var_shapes, prepared)
+        Ktb = self._spatial_ktb(prepared, b, rho, v, params)
+        with_v = v is not None
+        quad_fns, other_fns = self.quad_fns, self.other_fns
+
+        def KtK(theta, x):
+            rho_, params_ = theta[0], theta[1]
+            out = 0.0
+            for fn in quad_fns:
+                out = out + fn.dag_adjoint(fn.dag_forward(x, params_), params_)
+            for fn in other_fns:
+                out = out + rho_ * fn.dag_adjoint(fn.dag_forward(x, params_), params_)
+            if with_v:
+                out = out + rho_ * x
+            return out
+
+        cfg = self.linear_solve_config
+        theta, Minv_fn = (rho, params or {}), None
+        if ("precond_quad" in prepared and cfg.solver_type in ("cg", "pcg")
+                and "Minv" not in cfg.solver_kwargs):
+            # frequency-circulant Jacobi preconditioner (see prepare())
+            Mdiag = prepared["precond_quad"] + rho * prepared["precond_psi"]
+            if with_v:
+                Mdiag = Mdiag + rho
+            # dtype-aware rtol floor: past ~30 eps the preconditioned
+            # iteration amplifies round-off through M^{-1} (up to 1/rho)
+            # instead of converging
+            floor = 30 * torch.finfo(Ktb.dtype).eps
+            cfg = dataclasses.replace(cfg, solver_type="pcg", rtol=max(cfg.rtol, floor))
+            theta, Minv_fn = (rho, params or {}, Mdiag), _freq_jacobi_minv
+        return linear_solve(KtK, Ktb, theta=theta, config=cfg, x0=warm, Minv_fn=Minv_fn)
 
     def __repr__(self):
-        return "least_squares(freq_diagonalizable=True)"
+        return (f"least_squares(diagonalizable={self.diagonalizable}, "
+                f"freq_diagonalizable={self.freq_diagonalizable})")

@@ -1,9 +1,9 @@
 """Sample images, PSF generators and the blur degradation.
 
 Counterpart of dprox_tpu/utils/imaging.py (``_synthetic_face``,
-``sample``, ``point_spread_function``, ``blurring``). Sample data is
-deterministic numpy; the blur runs with ``torch.fft`` on the image's
-device.
+``sample``, ``point_spread_function``, ``blurring``, ``bayer_mask``,
+``mosaicing``). Sample data is deterministic numpy; the degradations run
+with torch on the image's device.
 """
 from __future__ import annotations
 
@@ -91,3 +91,18 @@ def blurring(img: torch.Tensor, psf: np.ndarray) -> torch.Tensor:
     otf = torch.from_numpy(otf).to(img.device)[None, None]
     out = torch.fft.ifft2(otf * torch.fft.fft2(img)).real
     return out.to(img.dtype)
+
+
+def bayer_mask(shape) -> np.ndarray:
+    """RGGB Bayer mask as [1,3,H,W] float32."""
+    mask = np.zeros((1, 3) + tuple(shape), np.float32)
+    for channel, (y, x) in zip((0, 1, 1, 2), [(0, 0), (0, 1), (1, 0), (1, 1)]):
+        mask[0, channel, y::2, x::2] = 1
+    return mask
+
+
+def mosaicing(img: torch.Tensor) -> torch.Tensor:
+    """Apply the Bayer RGGB mask to a BCHW RGB image."""
+    img = to_tensor(img, batch=True)
+    mask = torch.from_numpy(bayer_mask(tuple(img.shape[-2:]))).to(img.device)
+    return mask * img

@@ -69,6 +69,142 @@ def test_freq_divide_kernel_matches_plain(cuda, fshape, dshape, rshape, strided)
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
+ROW_SHAPES = [(1, 3, 512, 512), (1, 3, 256, 256), (2, 3, 37, 53), (4, 1, 7, 9),
+              (2, 5000), (1, 3)]
+
+
+def _randn(rng, shape, device):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("kind", ["nonneg", "soft"])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+@pytest.mark.parametrize("per_batch", [False, True])
+def test_fused_admm_update_kernel_equals_plain(cuda, kind, shape, per_batch):
+    """Same float32 operations in the same order, no contraction: exact."""
+    rng = np.random.RandomState(2)
+    Kx, u = _randn(rng, shape, cuda), _randn(rng, shape, cuda)
+    Kx.view(-1)[:3] = torch.tensor([0.0, float("nan"), float("inf")], device=cuda)
+    u.view(-1)[:3] = 0.0
+    lam = torch.from_numpy((0.1 + rng.rand(shape[0] if per_batch else 1))
+                           .astype(np.float32)).to(cuda)
+    before = kernels.fused_admm_update.launches
+    v, u_new = kernels.fused_admm_update(Kx, u, lam, kind)
+    assert kernels.fused_admm_update.launches == before + 1
+    v_ref, u_ref = kernels.fused_admm_update_plain(Kx, u, lam, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(v.nan_to_num(nan=7.0), v_ref.nan_to_num(nan=7.0))
+    assert torch.equal(u_new.nan_to_num(nan=7.0), u_ref.nan_to_num(nan=7.0))
+    assert float(v.view(-1)[0]) == 0.0 and bool(torch.isnan(v.view(-1)[1]))
+
+
+@pytest.mark.parametrize("lam", [None, 0.1, "per_pixel_float64"])
+def test_fused_admm_update_nonneg_reads_no_lam(cuda, lam):
+    """The generic nonneg prox ignores lam whatever it is; so does the
+    kernel's nonneg kind (its soft kind checks lam)."""
+    rng = np.random.RandomState(6)
+    Kx, u = _randn(rng, (2, 3, 37, 53), cuda), _randn(rng, (2, 3, 37, 53), cuda)
+    if lam == "per_pixel_float64":
+        lam = torch.rand(Kx.shape, dtype=torch.float64, device=cuda)
+    before = kernels.fused_admm_update.launches
+    v, u_new = kernels.fused_admm_update(Kx, u, lam, "nonneg")
+    assert kernels.fused_admm_update.launches == before + 1
+    v_ref, u_ref = kernels.fused_admm_update_plain(Kx, u, lam, "nonneg")
+    torch.cuda.synchronize()
+    assert torch.equal(v, v_ref) and torch.equal(u_new, u_ref)
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_bdot_kernel_matches_plain_and_is_deterministic(cuda, shape):
+    """float32 sums in another order than torch.sum: relative 1e-5 of
+    sum |p q|; two calls give the same bits (no atomics)."""
+    rng = np.random.RandomState(3)
+    p, q = _randn(rng, shape, cuda), _randn(rng, shape, cuda)
+    before = kernels.bdot.launches
+    got = kernels.bdot(p, q)
+    assert kernels.bdot.launches == before + 1
+    again = kernels.bdot(p, q)
+    ref = kernels.bdot_plain(p, q)
+    exact = (p.double() * q.double()).flatten(1).sum(1)
+    scale = (p * q).abs().flatten(1).sum(1).double()
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0],) and torch.equal(got, again)
+    assert bool(((got.double() - ref.double()).abs() <= 1e-5 * scale).all())
+    assert bool(((got.double() - exact).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_fused_cg_tail_kernel_matches_plain(cuda, shape):
+    """alpha, beta and rs' come from differently ordered float32 sums and
+    scale whole arrays: relative 1e-5 of each output's largest value."""
+    rng = np.random.RandomState(4)
+    x, r, p = (_randn(rng, shape, cuda) for _ in range(3))
+    Ap = p * 1.5 + 0.1 * _randn(rng, shape, cuda)  # <p, Ap> > 0, as for an SPD A
+    rs = kernels.bdot_plain(r, r)
+    before = kernels.fused_cg_tail.launches
+    got = kernels.fused_cg_tail(x, r, p, Ap, rs)
+    assert kernels.fused_cg_tail.launches == before + 1
+    again = kernels.fused_cg_tail(x, r, p, Ap, rs)
+    ref = kernels.fused_cg_tail_plain(x, r, p, Ap, rs)
+    torch.cuda.synchronize()
+    for g, a, e in zip(got, again, ref):
+        assert g.shape == e.shape and torch.equal(g, a)
+        assert float((g - e).abs().max()) <= 1e-5 * float(e.abs().max())
+
+
+def test_fused_cg_tail_clamps_and_batch_independence(cuda):
+    """Row 0: Ap = 0, so <p, Ap> = 0 and alpha = rs / 1e-32; row 1: a
+    converged element (r = p = 0, rs = 0), which must stay put; row 2: an
+    ordinary element, equal to the same element run alone."""
+    rng = np.random.RandomState(5)
+    shape = (3, 3, 16, 20)
+    x, r, p = (_randn(rng, shape, cuda) for _ in range(3))
+    Ap = p * 2.0
+    Ap[0] = 0.0
+    r[0] *= 1e-18
+    r[1] = 0.0
+    p[1] = 0.0
+    rs = kernels.bdot_plain(r, r)
+    got = kernels.fused_cg_tail(x, r, p, Ap, rs)
+    ref = kernels.fused_cg_tail_plain(x, r, p, Ap, rs)
+    alone = kernels.fused_cg_tail(x[2:], r[2:], p[2:], Ap[2:], rs[2:])
+    torch.cuda.synchronize()
+    for g, e, a in zip(got, ref, alone):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - e).abs().max()) <= 1e-5 * float(e.abs().max())
+        assert torch.equal(g[2:], a)
+    assert torch.equal(got[0][1], x[1]) and float(got[3][1]) == 0.0
+    assert float(got[2][1].abs().max()) == 0.0
+
+
+def test_solver_kernels_raise_on_what_they_do_not_take(cuda):
+    a = torch.rand(2, 3, 8, 8, device=cuda)
+    lam = torch.full((1,), 0.1, device=cuda)
+    for bad in (a.double(), a.to(torch.complex64)):
+        with pytest.raises(NotImplementedError, match="CS-MRI"):
+            kernels.bdot(bad, bad)
+        with pytest.raises(NotImplementedError, match="CS-MRI"):
+            kernels.fused_admm_update(bad, bad, lam)
+        with pytest.raises(NotImplementedError, match="CS-MRI"):
+            kernels.fused_cg_tail(bad, bad, bad, bad, torch.ones(2, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.bdot(a.half(), a.half())
+    with pytest.raises(ValueError):
+        kernels.bdot(a, a[:, :, :4])
+    with pytest.raises(ValueError):
+        kernels.bdot(a.transpose(2, 3), a.transpose(2, 3))
+    with pytest.raises(ValueError):
+        kernels.bdot(a, a.cpu())
+    with pytest.raises(ValueError):
+        kernels.fused_admm_update(a, a, lam, kind="l2")
+    with pytest.raises(ValueError):
+        kernels.fused_admm_update(a, a, torch.full((3,), 0.1, device=cuda), kind="soft")
+    with pytest.raises(TypeError):
+        kernels.fused_admm_update(a, a, 0.1, kind="soft")  # host float scalar
+    with pytest.raises(ValueError):
+        kernels.fused_cg_tail(a, a, a, a, torch.ones(3, device=cuda))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     y = torch.rand(2, 16, 16, device=cuda)
     lam = torch.full((1,), 0.1, device=cuda)
@@ -109,5 +245,6 @@ def test_slice_on_cuda_matches_cpu(cuda):
         kernels.reset_launches()
         outs[device] = solver.solve(x0=b, max_iter=8, rhos=rhos, lams=sigmas).cpu()
         expected = 8 if device == "cuda" else 0
-        assert kernels.launch_counts() == {"tv_denoise_chw": expected, "freq_divide": expected}
+        counts = kernels.launch_counts()
+        assert (counts["tv_denoise_chw"], counts["freq_divide"]) == (expected, expected)
     assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4

@@ -11,7 +11,9 @@ import torch
 import jax.numpy as jnp
 
 from dprox_tpu.models.tv import tv_denoising_chw as jax_tv
-from dprox_tpu.ops.pallas_kernels import _freq_divide_ref, tv_denoise_chw_pallas
+from dprox_tpu.ops.pallas_kernels import (_freq_divide_ref, bdot_pallas,
+                                          fused_admm_update, fused_cg_tail,
+                                          tv_denoise_chw_pallas)
 from dprox_tpu_torch.models.tv import tv_denoising_chw
 from dprox_tpu_torch.ops import kernels
 
@@ -50,7 +52,7 @@ def test_tv_wrapper_takes_plain_version_on_cpu():
     kernels.reset_launches()
     out = kernels.tv_denoise_chw(y, lam, 10)
     assert torch.equal(out, kernels.tv_denoise_chw_plain(y, lam, 10))
-    assert kernels.launch_counts() == {"tv_denoise_chw": 0, "freq_divide": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 DIVIDE_CASES = [  # (F shape, diag shape, rho shape)
@@ -71,6 +73,82 @@ def test_freq_divide_plain_matches_jax_reference(fshape, dshape, rshape):
                               torch.from_numpy(rho)).numpy()
     ref = np.asarray(_freq_divide_ref(jnp.asarray(F), jnp.asarray(diag), jnp.asarray(rho)))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["nonneg", "soft"])
+@pytest.mark.parametrize("shape,lam", [((1, 3, 16, 128), 0.1), ((2, 3, 7, 9), 0.35)])
+def test_fused_admm_update_plain_equals_jax(kind, shape, lam):
+    """The same float32 elementwise operations in both packages: exact.
+    (The JAX function takes its jnp path on the CPU.)"""
+    rng = np.random.RandomState(4)
+    Kx, u = rng.randn(*shape).astype(np.float32), rng.randn(*shape).astype(np.float32)
+    Kx.flat[:2] = 0.0
+    u.flat[:2] = [0.0, -0.0]
+    v, u_new = kernels.fused_admm_update(torch.from_numpy(Kx), torch.from_numpy(u),
+                                         torch.tensor(lam), kind)
+    v_ref, u_ref = fused_admm_update(jnp.asarray(Kx), jnp.asarray(u), lam, kind)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(u_new.numpy(), np.asarray(u_ref))
+
+
+def test_fused_admm_update_plain_takes_lam_per_batch_element():
+    rng = np.random.RandomState(5)
+    Kx, u = (torch.from_numpy(rng.randn(3, 2, 5, 6).astype(np.float32)) for _ in range(2))
+    lam = torch.tensor([0.1, 0.5, 0.9])
+    v, u_new = kernels.fused_admm_update(Kx, u, lam, "soft")
+    for i in range(3):
+        vi, ui = kernels.fused_admm_update(Kx[i:i + 1], u[i:i + 1], lam[i], "soft")
+        assert torch.equal(v[i:i + 1], vi) and torch.equal(u_new[i:i + 1], ui)
+
+
+def test_bdot_plain_matches_jax():
+    """atol 1e-3 at 4x3x8x128 as in tests/test_pallas_ops.py, and relative
+    1e-6 of sum |p q| (float32 sums in two orders)."""
+    rng = np.random.RandomState(2)
+    p = rng.randn(4, 3, 8, 128).astype(np.float32)
+    q = rng.randn(4, 3, 8, 128).astype(np.float32)
+    got = kernels.bdot(torch.from_numpy(p), torch.from_numpy(q)).numpy()
+    ref = np.asarray(bdot_pallas(jnp.asarray(p), jnp.asarray(q)))
+    assert got.shape == (4,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
+    scale = np.abs(p * q).reshape(4, -1).sum(1)
+    assert np.all(np.abs(got - ref) <= 1e-6 * scale)
+
+
+def test_fused_cg_tail_plain_matches_pallas_interpret():
+    """Against the Pallas kernel in interpret mode, rtol/atol 1e-4 as in
+    tests/test_pallas_ops.py."""
+    rng = np.random.RandomState(5)
+    shp = (2, 3, 16, 128)
+    x, r, p, Ap = (rng.randn(*shp).astype(np.float32) for _ in range(4))
+    rs = (r.reshape(2, -1) ** 2).sum(1)
+    got = kernels.fused_cg_tail(*(torch.from_numpy(a) for a in (x, r, p, Ap, rs)))
+    ref = fused_cg_tail(*(jnp.asarray(a) for a in (x, r, p, Ap, rs)), interpret=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+def test_fused_cg_tail_plain_clamps():
+    """<p, Ap> = 0 and rs = 0 divide by the 1e-32 clamp, not by zero."""
+    x = torch.ones(2, 4)
+    zeros = torch.zeros(2, 4)
+    out = kernels.fused_cg_tail(x, zeros, zeros, zeros, torch.zeros(2))
+    assert torch.equal(out[0], x) and all(bool(torch.isfinite(t).all()) for t in out)
+    assert float(out[3].abs().max()) == 0.0
+
+
+def test_solver_wrappers_take_plain_version_on_cpu():
+    t = torch.from_numpy(np.random.RandomState(6).randn(2, 3, 5, 7).astype(np.float32))
+    kernels.reset_launches()
+    assert torch.equal(kernels.bdot(t, t), kernels.bdot_plain(t, t))
+    for a, b in zip(kernels.fused_admm_update(t, t, torch.tensor(0.2), "soft"),
+                    kernels.fused_admm_update_plain(t, t, torch.tensor(0.2), "soft")):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        kernels.fused_admm_update(t, t, torch.tensor(0.2), "l2")
+    assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide",
+                                            "fused_admm_update", "bdot", "fused_cg_tail"}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_wrappers_reject_non_tensors():
