@@ -11,7 +11,8 @@ exits non-zero):
 1. build    - compile the Hopper kernels from csrc/ with nvcc.
 2. check    - hold each kernel against its plain PyTorch version on the
               card, at the main path's shapes and at odd sizes, and time
-              kernel, plain version and library call with CUDA events.
+              kernel, plain version and library call with CUDA events
+              (three lines: check, check_solver_kernels, check_bsr).
 3. main     - the flagship PnP-ADMM deconvolution at 512x512x3 with the
               distilled_color_tv prior (FFDNet nc=96 nb=10 + TV), through
               dp.compile(...).solve(...), with the kernels' launch counts
@@ -32,6 +33,19 @@ exits non-zero):
               the CPU, launch counts (the inner CG iterations follow from
               them), marginal outer iterations/s (4 -> 24), and
               what the per-iteration stop test's host read costs.
+7. lp       - the energy-planning LP synthetic_cep_model(512, 16) (16912 x
+              8208 constraint matrix, 324 dense 128 x 128 tiles) in float32
+              through LPProblem / LPSolverADMM.solve_fused: convergence,
+              objective against HiGHS (scipy.optimize.linprog, solved
+              here), feasibility against the JAX package on the CPU,
+              bsr_matvec and bdot launch counts against the iteration
+              counts, one ADMM iteration's stages; then hyperparameter
+              pretraining through the kernel's backward (pretrain_lp,
+              solve_lp), the chunked solve at synthetic_cep_model(2048, 16)
+              and a float64 solve at synthetic_cep_model(64, 8).
+8. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
+              solve_consensus_lp(fused=True) in float32 against the HiGHS
+              optimum of the extensive form.
 
 Then one line {"kernels": [...]}, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}. float32 convolutions and matmuls
@@ -89,6 +103,34 @@ JAX_CPU_NONNEG_PSNR_X = 26.406545602764183
 #   metrics.psnr(s.solve(x0=init, max_iter=24, rhos=rhos, lams=sig, params={'b': jnp.asarray(b)}), img)
 JAX_CPU_JOINT_PSNR_INIT = 25.143699769015036
 JAX_CPU_JOINT_PSNR_X = {"cg_pallas": 26.921728215415563, "default_pcg": 26.936196782092523}
+
+# The LP phase: synthetic_cep_model(512, 16) in float32. The values below were
+# computed with the JAX package on the CPU by
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import jax; jax.config.update('jax_platforms','cpu'); import numpy as np, jax.numpy as jnp; from dprox_tpu.algo.lp import LPProblem, LPSolverADMM; from dprox_tpu.contrib.energy_system import synthetic_cep_model; c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(512, 16); p = LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=jnp.float32); x, res = LPSolverADMM(dtype=jnp.float32, verbose=False).solve_fused(p, max_iters=20000); x = np.asarray(x, np.float64); print(res['iters'], c @ x, x.min(), np.abs(A_eq @ x - b_eq).max(), (A_ub @ x - b_ub).max())"
+# The float32 residuals of this solve wander around their thresholds from
+# iteration ~500 on, so the iteration at which both are first met moves with
+# the order of every sum (the port with its plain versions on the CPU stops
+# at 4025, objective 51389.382, equality gap 0.0277, inequality gap 0.00325);
+# counts are printed, and the gates are objective and feasibility. The same
+# holds for the feasibility gaps at the stop: the stopping rule bounds each of
+# them by r_norm < eps_primal (0.118 here, in the problem's own units), and
+# where below that they land is as much a draw as the count is: the
+# inequality gap is 0.0019 in JAX-CPU, 0.0032 in the port on the CPU and
+# 0.0159 on an H100. So the gate is what the solver promises, each gap <=
+# the solve's r_norm (with 0.1% for float32 against float64 evaluation) and
+# r_norm < eps_primal; the line also says whether the gaps are within twice
+# the JAX-CPU values, ungated.
+JAX_CPU_LP_ITERS = 1700
+JAX_CPU_LP_OBJECTIVE = 51399.91388895211
+JAX_CPU_LP_X_MIN = -0.0054648746736347675
+JAX_CPU_LP_EQ_GAP = 0.03363540104732721   # max |A_eq x - b_eq|
+JAX_CPU_LP_UB_GAP = 0.0018959328092797703  # max (A_ub x - b_ub)
+LP_OBJECTIVE_TOL = 1e-3         # |c @ x - HiGHS| / |HiGHS|
+LP_GAP_SLACK = 1e-3             # each gap <= r_norm * (1 + slack) + 1e-6
+LP_X_MIN = -1e-2
+CONSENSUS_OBJECTIVE_TOL = 5e-3  # against the extensive form's HiGHS optimum
+BSR_REL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # max |kernel - plain| / max |plain|
+BSR_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
 
 TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
@@ -685,6 +727,439 @@ def phase_joint(dp, kernels, dev, card):
     return launches_by_config
 
 
+def equilibrated_cep(n_periods, n_tech):
+    """The Ruiz-equilibrated stacked constraint matrix [A_ub; A_eq; I] of
+    synthetic_cep_model(n_periods, n_tech) as LPProblem builds it (scipy CSR,
+    float64)."""
+    from dprox_tpu_torch.algo.lp import LPProblem
+    from dprox_tpu_torch.contrib.energy_system import synthetic_cep_model
+
+    c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(n_periods, n_tech)
+    return LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=torch.float32).A_host
+
+
+def _directions(op, A):
+    """(name, tiles, idx_in, idx_out, row_ptr, n_in_blocks, n_out_blocks,
+    scipy matrix) of the forward and the transposed apply of a BSRMat."""
+    return [("forward", op.tiles, op.col_ids, op.row_ids, op.row_ptr, op.Nb, op.Mb, A),
+            ("transposed", op.tilesT, op.row_idsT, op.col_idsT, op.row_ptrT, op.Mb, op.Nb,
+             A.T.tocsr())]
+
+
+def phase_check_bsr(kernels, dev):
+    """bsr_matvec (float32, float64; forward, transposed, backward) and the
+    float64 bdot against their plain versions and scipy on the card; returns
+    the bsr_matvec measurements at the LP path's shapes."""
+    import scipy.sparse as sp
+
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    rng = np.random.RandomState(2)
+    with_empty_rows = sp.lil_matrix((5 * 128, 300))
+    with_empty_rows[0:40, 0:290] = rng.rand(40, 290)
+    with_empty_rows[520:640, 130:300] = rng.rand(120, 170)  # row blocks 1..3 stay empty
+    random = lambda m, n: sp.random(m, n, density=0.05, random_state=rng, format="csr")
+    A_lp, A_big = equilibrated_cep(512, 16), equilibrated_cep(2048, 16)
+    matrices = [("cep(512,16)", A_lp, 128, 128), ("cep(2048,16)", A_big, 128, 128),
+                ("random 70x33", random(70, 33), 128, 128),
+                ("random 256x300", random(256, 300), 128, 128),
+                ("random 13x513", random(13, 513), 128, 128),
+                ("empty output block rows 640x300", with_empty_rows.tocsr(), 128, 128),
+                ("random 150x90, bm=32 bn=16", random(150, 90), 32, 16),
+                ("random 90x150, bm=48 bn=200", random(90, 150), 48, 200)]
+    cases, timed = [], {}
+    for name, A, bm, bn in matrices:
+        for dtype in (torch.float32, torch.float64):
+            op = BSRMat(A, bm=bm, bn=bn, dtype=dtype, device=dev)
+            for direction, tiles, idx_in, idx_out, ptr, n_in, n_out, M in _directions(op, A):
+                v = rng.rand(M.shape[1])
+                vb = torch.zeros(n_in * tiles.shape[2], dtype=dtype, device=dev)
+                vb[:v.shape[0]] = torch.from_numpy(v).to(device=dev, dtype=dtype)
+                vb = vb.reshape(n_in, -1)
+                got = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
+                again = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out)
+                ref = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out)
+                torch.cuda.synchronize()
+                exact = M @ v
+                flat = got.reshape(-1)[:M.shape[0]].double().cpu().numpy()
+                err = float((got - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                rel_scipy = float(np.abs(flat - exact).max() / np.abs(exact).max())
+                cases.append({"matrix": name, "shape": list(A.shape), "tiles": op.n_tiles,
+                              "blocks": [bm, bn], "dtype": str(dtype).replace("torch.", ""),
+                              "direction": direction, "max_abs_err": err, "max_rel_err": rel,
+                              "max_rel_err_vs_scipy_float64": rel_scipy})
+                if not rel <= BSR_REL_TOL[dtype]:
+                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: relative diff "
+                                         f"{rel} > {BSR_REL_TOL[dtype]}")
+                if not rel_scipy <= BSR_SCIPY_REL_TOL[dtype]:
+                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: relative diff "
+                                         f"to scipy {rel_scipy} > {BSR_SCIPY_REL_TOL[dtype]}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: two calls "
+                                         "gave different bits")
+                if float(got.reshape(-1)[M.shape[0]:].abs().max() if got.numel() > M.shape[0]
+                         else 0.0) != 0.0:
+                    raise AssertionError(f"bsr_matvec {name}: padding rows are not zero")
+                if name.startswith("cep") and dtype == torch.float32:
+                    timed[(name, dtype, direction)] = (op, tiles, idx_in, idx_out, ptr, vb, n_out,
+                                                       M, err)
+            if name.startswith("empty") and float((op @ torch.ones(300, dtype=dtype, device=dev))
+                                                  [128:512].abs().max()) != 0.0:
+                raise AssertionError("bsr_matvec: an output block without tiles is not zero")
+
+    # the backward on the card: grad of sum((A x)^2) = 2 A^T A x, and of A^T
+    backward = []
+    for name, A, dtype, tol in [("cep(512,16)", A_lp, torch.float32, 1e-4),
+                                ("cep(512,16)", A_lp, torch.float64, 1e-10),
+                                ("random 40x30, bm=bn=16",
+                                 sp.random(40, 30, density=0.2, random_state=rng, format="csr"),
+                                 torch.float64, 1e-10)]:
+        op = BSRMat(A, bm=16 if A.shape[0] == 40 else 128, bn=16 if A.shape[0] == 40 else 128,
+                    dtype=dtype, device=dev)
+        for M, apply in ((A, lambda t: op @ t), (A.T.tocsr(), lambda t: op.T @ t)):
+            x0 = rng.rand(M.shape[1])
+            x = torch.from_numpy(x0).to(device=dev, dtype=dtype).requires_grad_()
+            before = kernels.bsr_matvec.launches
+            g, = torch.autograd.grad(torch.sum(apply(x) ** 2), x)
+            launched = kernels.bsr_matvec.launches - before
+            exact = 2 * (M.T @ (M @ x0))
+            rel = float(np.abs(g.double().cpu().numpy() - exact).max() / np.abs(exact).max())
+            backward.append({"matrix": name, "dtype": str(dtype).replace("torch.", ""),
+                             "operator": "A" if M is A else "A^T", "max_rel_err": rel,
+                             "launches": launched})
+            if not rel <= tol or launched != 2:
+                raise AssertionError(f"bsr_matvec backward {name} {dtype}: relative diff {rel} "
+                                     f"> {tol} or {launched} launches != 2")
+
+    bdot64 = []
+    for shape in [(1, 8208), (8, 520), (2, 3, 37, 53), (1, 3, 256, 256)]:
+        a = torch.from_numpy(rng.randn(*shape)).to(dev)
+        q = 1.5 * a + 0.1 * torch.from_numpy(rng.randn(*shape)).to(dev)
+        got, again = kernels.bdot(a, q), kernels.bdot(a, q)
+        ref = kernels.bdot_plain(a, q)
+        torch.cuda.synchronize()
+        rel = float(((got - ref).abs() / ref.abs()).max())
+        bdot64.append({"shape": list(shape), "max_rel_err": rel})
+        if not (rel <= 1e-12 and got.dtype == torch.float64 and torch.equal(got, again)):
+            raise AssertionError(f"bdot float64 {shape}: relative diff {rel} > 1e-12")
+    # bdot is differentiable on the card: d<p, q>/dp = q, d/dq = p
+    a = torch.from_numpy(rng.randn(2, 8208).astype(np.float32)).to(dev).requires_grad_()
+    q = torch.from_numpy(rng.randn(2, 8208).astype(np.float32)).to(dev).requires_grad_()
+    ga, gq = torch.autograd.grad(kernels.bdot(a, q).sum(), (a, q))
+    if not (torch.equal(ga, q.detach()) and torch.equal(gq, a.detach())):
+        raise AssertionError("bdot on the card: wrong gradient")
+
+    # timings, float32, both operators and directions; the library call is
+    # torch.sparse's CSR product of the same matrix with the same vector
+    rows = []
+    for (name, dtype, direction), (op, tiles, idx_in, idx_out, ptr, vb, n_out, M, err) in timed.items():
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(M.indptr.astype(np.int32)), torch.from_numpy(M.indices.astype(np.int32)),
+            torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
+            check_invariants=True).to(dev)
+        v = vb.reshape(-1)[:M.shape[1]].contiguous()
+        item, T, (bm_, bn_) = 4, tiles.shape[0], tiles.shape[1:]
+        dense_bytes = T * bm_ * bn_ * item + vb.numel() * item + n_out * bm_ * item \
+            + (T + n_out + 1) * 4
+        csr_bytes = M.nnz * (item + 4) + (M.shape[0] + 1) * 4 + sum(M.shape) * item
+        b_dense = bound(dense_bytes, 2 * T * bm_ * bn_)
+        launch = lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
+        rows.append({"matrix": name, "shape": list(M.shape), "nnz": int(M.nnz), "tiles": T,
+                     "direction": direction, "max_abs_err": err,
+                     "ms": time_ms(launch), "eager_ms": time_ms(launch, graph=False),
+                     "plain_ms": time_ms(lambda: kernels.bsr_matvec_plain(tiles, idx_in, idx_out,
+                                                                          vb, n_out)),
+                     "library_ms": time_ms(lambda: csr @ v),
+                     "bound_ms": b_dense[0], "bound_by": b_dense[1],
+                     "dense_tile_bytes": dense_bytes,
+                     "csr_bound_ms": bound(csr_bytes, 2 * M.nnz)[0], "csr_bytes": csr_bytes})
+    main_row = next(r for r in rows if r["matrix"] == "cep(512,16)" and r["direction"] == "forward")
+    bsr = {"name": "bsr_matvec", "route": "cuda",
+           "source": "dprox_tpu_torch/csrc/bsr_matvec.cu",
+           "replaces": "dprox_tpu/ops/pallas_kernels.py:173",
+           **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+           "library": "torch.sparse CSR A @ x (float32) of the same matrix",
+           "at_shapes": rows}
+    emit({"phase": "check_bsr", "cases": cases, "backward_cases": backward,
+          "bdot_float64_cases": bdot64,
+          "tolerance": {"float32": BSR_REL_TOL[torch.float32], "float64": BSR_REL_TOL[torch.float64],
+                        "of": "max |kernel - plain| / max |plain|"},
+          "timing": "CUDA-graph replay, median of 30 x 10 calls, float32; the 2048-period "
+                    "operator's 85 MB of tiles per direction exceed the 50 MB L2",
+          "measured": [bsr]})
+    return [bsr]
+
+
+def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
+    """Objective and feasibility of an LP solution; raises outside the gates."""
+    x = x.detach().double().cpu().numpy()
+    out = {"objective": float(c @ x), "highs_objective": float(highs_fun),
+           "objective_gap": float((c @ x - highs_fun) / abs(highs_fun)),
+           "x_min": float(x.min()), "eq_gap": float(np.abs(A_eq @ x - b_eq).max()),
+           "ub_gap": float((A_ub @ x - b_ub).max())}
+    if res is not None:
+        out.update(iterations=res["iters"], r_norm=res["r_norm"], eps_primal=res["eps_primal"],
+                   s_norm=res["s_norm"], eps_dual=res["eps_dual"])
+        if not (res["r_norm"] < res["eps_primal"] and res["s_norm"] < res["eps_dual"]):
+            raise AssertionError(f"{name}: not converged: {res}")
+        limit = res["r_norm"] * (1 + LP_GAP_SLACK) + 1e-6
+        if not (out["eq_gap"] <= limit and out["ub_gap"] <= limit and -out["x_min"] <= limit):
+            raise AssertionError(f"{name}: feasibility gaps {out['eq_gap']}, {out['ub_gap']}, "
+                                 f"x.min() {out['x_min']} above the solve's r_norm {res['r_norm']}")
+    if not abs(out["objective_gap"]) <= LP_OBJECTIVE_TOL:
+        raise AssertionError(f"{name}: objective gap {out['objective_gap']} > {LP_OBJECTIVE_TOL}")
+    return out
+
+
+def _highs(c, A_ub, b_ub, A_eq, b_eq):
+    from scipy.optimize import linprog
+
+    ref = linprog(c, A_ub, b_ub, A_eq, b_eq, bounds=(0, None), method="highs")
+    if not ref.success:
+        raise AssertionError(f"HiGHS failed: {ref.message}")
+    return ref.fun
+
+
+def phase_lp(kernels, dev, card):
+    from dprox_tpu_torch.algo import lp
+    from dprox_tpu_torch.algo.lp.solvers import LPConvergenceLoss, pretrain_lp
+    from dprox_tpu_torch.contrib.energy_system import synthetic_cep_model
+    from dprox_tpu_torch.linalg import solvers
+
+    c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(512, 16)
+    data = (c, A_ub, b_ub, A_eq, b_eq)
+    t0 = time.perf_counter()
+    highs_fun = _highs(*data)
+    highs_s = time.perf_counter() - t0
+    p = lp.LPProblem(*data, dtype=torch.float32)
+    if p.device.type != "cuda" or not isinstance(p.A, lp.BSRMat):
+        raise AssertionError(f"LPProblem on {p.device} with operator {type(p.A).__name__}")
+    solver = lp.LPSolverADMM(dtype=torch.float32, verbose=False)
+
+    # the main path: one solve with the counts read around it, then the same
+    # solve again for the warm time
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x, res = solver.solve_fused(p, max_iters=20000)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    x2, res2 = solver.solve_fused(p, max_iters=20000)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    out = _lp_gates("lp", *data, x, highs_fun, res)
+    iters = res["iters"]
+    chunks = -(-iters // 25)
+    # per ADMM iteration: A^T once for the right-hand side, A and A^T in the
+    # PCG's set-up and in each of its iterations, A once after it; bdot once in
+    # the set-up and twice per PCG iteration; A and A^T once per chunk's
+    # residual evaluation
+    inner, odd = divmod(launches["bdot"] - iters, 2)
+    expected = dict.fromkeys(launches, 0) | {
+        "bdot": launches["bdot"], "bsr_matvec": 4 * iters + 2 * inner + 2 * chunks}
+
+    # one ADMM iteration's stages at the middle of the solve: replay the
+    # first half (the solve is deterministic) and keep that iteration's inputs
+    class Recording(lp.LPSolverADMM):
+        at, calls, snapshot = max(iters // 2, 1), 0, None
+
+        def _one_iter(self, p, carry, *args):
+            self.calls += 1
+            if self.calls == self.at:
+                self.snapshot = (carry, args)
+            return super()._one_iter(p, carry, *args)
+
+    rec = Recording(dtype=torch.float32, verbose=False)
+    rec.solve_fused(p, max_iters=rec.at)
+    carry, (rtol, rho, c_s, sigma, alpha, lb, ub, pcg_iters) = rec.snapshot
+    xs, zs, ys, xts = carry
+    before = kernels.bdot.launches
+    one_iter = lambda: solver._one_iter(p, carry, rtol, rho, c_s, sigma, alpha, lb, ub, pcg_iters)
+    with torch.no_grad():
+        one_iter()
+        inner_here = (kernels.bdot.launches - before - 1) // 2
+        M = (sigma + rho * p.Acnorm ** 2)[None]
+        r, z, pk, Ap = (torch.randn(1, p.n, device=dev) for _ in range(4))
+        rz = solvers.bdot(r, z)
+        tol = rtol * solvers._clamp(solvers._bmax(r))
+
+        def pcg_elementwise():  # everything of a PCG iteration but matvecs and dots
+            Ap2 = rho * Ap[0] + sigma * pk[0]  # the two scalings inside KtK
+            alpha_k = rz / solvers._clamp(rz)
+            x_new = r + alpha_k[:, None] * pk
+            r_new = r - alpha_k[:, None] * Ap
+            z_new = r_new / M
+            beta = rz / solvers._clamp(rz)
+            return z_new + beta[:, None] * pk, x_new, Ap2
+
+        gam = p.gamma_c * torch.ones((), device=dev), p.gamma_b * torch.ones((), device=dev)
+        stages = {
+            "iteration_with_host_reads": _best_ms(one_iter),
+            "pcg_iterations_in_it": inner_here,
+            "bsr_matvec_A": time_ms(lambda: p.A @ xs, 20, 5, graph=False),
+            "bsr_matvec_A_device": time_ms(lambda: p.A @ xs, 20, 5),
+            "bsr_matvec_AT": time_ms(lambda: p.AT @ zs, 20, 5, graph=False),
+            "bsr_matvec_AT_device": time_ms(lambda: p.AT @ zs, 20, 5),
+            "bdot": time_ms(lambda: solvers.bdot(r, z), 20, 5, graph=False),
+            "bdot_device": time_ms(lambda: solvers.bdot(r, z), 20, 5),
+            "pcg_elementwise": time_ms(pcg_elementwise, 20, 5, graph=False),
+            "pcg_elementwise_device": time_ms(pcg_elementwise, 20, 5),
+            "stop_test_host_read": _best_ms(lambda: bool((solvers._bmax(r) > tol).any())),
+            "eval_result": time_ms(lambda: solver.eval_result(p, c_s, *gam, xs, zs, ys), 20, 5,
+                                   graph=False),
+            "eval_result_device": time_ms(lambda: solver.eval_result(p, c_s, *gam, xs, zs, ys),
+                                          20, 5),
+        }
+
+    # the training path: Adam steps through solve_truncated, i.e. through the
+    # kernel's backward and the differentiable bdot
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, log = pretrain_lp(solver, p, steps=10)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    pretrain_launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    x_lp, history, results = lp.solve_lp(*data, verbose=False, dtype=torch.float32)
+    torch.cuda.synchronize()
+    solve_lp_s = time.perf_counter() - t0
+    trained = _lp_gates("solve_lp", *data, x_lp, highs_fun)
+    trained.update(iterations=25 * len(history["t_chunk"]), seconds=solve_lp_s,
+                   converged=bool(results[1] < results[3] and results[2] < results[4]))
+
+    # d loss / d rho of the truncated solve against a central difference, in
+    # float64 on the card (float64 kernels), at synthetic_cep_model(64, 8)
+    c8, A_ub8, A_eq8, b_ub8, b_eq8 = synthetic_cep_model(64, 8)
+    data8 = (c8, A_ub8, b_ub8, A_eq8, b_eq8)
+    p64 = lp.LPProblem(*data8, dtype=torch.float64)
+    s64 = lp.LPSolverADMM(dtype=torch.float64, verbose=False)
+    loss_fn = LPConvergenceLoss()
+
+    def loss_at(rho_value, grad=False):
+        prm = s64.init_params()
+        prm["rho"] = torch.tensor(rho_value, dtype=torch.float64, device=dev, requires_grad=grad)
+        with torch.set_grad_enabled(grad):
+            val = loss_fn(*s64.solve_truncated(p64, prm, iters=10))
+        if grad:
+            return float(torch.autograd.grad(val, prm["rho"])[0])
+        return float(val)
+
+    h = 1e-6
+    fd = (loss_at(1.0 + h) - loss_at(1.0 - h)) / (2 * h)
+    ad = loss_at(1.0, grad=True)
+    t0 = time.perf_counter()
+    x64, res64 = s64.solve_fused(p64, max_iters=20000)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    f64 = _lp_gates("lp float64", *data8, x64, _highs(*data8), res64)
+    f64["seconds"] = f64_s
+
+    # the chunked solve at the 2048-period instance: seconds per iteration only
+    cb, A_ubb, A_eqb, b_ubb, b_eqb = synthetic_cep_model(2048, 16)
+    pb = lp.LPProblem(cb, A_ubb, b_ubb, A_eqb, b_eqb, dtype=torch.float32)
+    solver.solve(pb, max_iters=25)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xb, hist_b, res_b = solver.solve(pb, max_iters=200)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    big_launches = kernels.launch_counts()
+    big = {"shape": list(pb.A.shape), "tiles": pb.A.n_tiles, "iterations": 200, "seconds": big_s,
+           "s_per_iteration": big_s / 200,
+           "pcg_iterations": (big_launches["bdot"] - 200) // 2,
+           "bsr_matvec_launches": big_launches["bsr_matvec"],
+           "finite": bool(torch.isfinite(xb).all())}
+
+    emit({"phase": "lp", "config": "synthetic_cep_model(512, 16), float32, "
+          "LPSolverADMM().solve_fused(p, max_iters=20000)",
+          "A_shape": list(p.A.shape), "nnz": int(p.A.nse), "tiles": p.A.n_tiles,
+          **out, "jax_cpu_iterations": JAX_CPU_LP_ITERS,
+          "jax_cpu": {"objective": JAX_CPU_LP_OBJECTIVE, "x_min": JAX_CPU_LP_X_MIN,
+                      "eq_gap": JAX_CPU_LP_EQ_GAP, "ub_gap": JAX_CPU_LP_UB_GAP},
+          "gaps_within_2x_jax_cpu": {"eq_gap": out["eq_gap"] <= 2 * JAX_CPU_LP_EQ_GAP,
+                                     "ub_gap": out["ub_gap"] <= 2 * JAX_CPU_LP_UB_GAP},
+          "highs_s": highs_s, "first_solve_s": first_s, "warm_s": warm_s,
+          "second_solve_equals_first": bool(torch.equal(x, x2)) and res2["iters"] == iters,
+          "s_per_iteration": warm_s / iters, "pcg_iterations": inner,
+          "pcg_iterations_per_iteration": inner / iters, "launches": launches,
+          "stage_at_iteration": rec.at, "stage_ms": stages,
+          "pretrain": {"steps": len(log), "seconds": pretrain_s, "losses": [e["loss"] for e in log],
+                       "first_step_gradients": log[0]["grad"], "launches": pretrain_launches,
+                       "best": {k: float(v) for k, v in params.items()}},
+          "solve_lp": trained,
+          "dloss_drho_float64": {"autograd": ad, "central_difference": fd, "h": h,
+                                 "instance": "synthetic_cep_model(64, 8)"},
+          "float64_solve": {"config": "synthetic_cep_model(64, 8), solve_fused", **f64},
+          "chunked_2048": big, "card": card})
+    if launches != expected or odd or inner <= 0:
+        raise AssertionError(f"lp: launch counts {launches} != {expected} "
+                             f"(iterations {iters}, PCG iterations {inner}, chunks {chunks})")
+    if tuple(x.shape) != (p.n,) or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"lp: bad output shape {tuple(x.shape)} or non-finite values")
+    if not out["x_min"] >= LP_X_MIN:
+        raise AssertionError(f"lp: x.min() {out['x_min']} < {LP_X_MIN}")
+    if not all(np.isfinite(e["loss"]) for e in log):
+        raise AssertionError(f"lp pretraining: non-finite loss in {[e['loss'] for e in log]}")
+    if not all(np.isfinite(g) and g != 0.0 for g in log[0]["grad"].values()):
+        raise AssertionError(f"lp pretraining: zero or non-finite gradient {log[0]['grad']}")
+    if pretrain_launches["bsr_matvec"] <= 0 or pretrain_launches["bdot"] <= 0:
+        raise AssertionError(f"lp pretraining launched no kernel: {pretrain_launches}")
+    if not abs(ad - fd) <= 1e-4 * abs(fd):
+        raise AssertionError(f"d loss / d rho: autograd {ad} vs central difference {fd}")
+    if not big["finite"]:
+        raise AssertionError("chunked solve at 2048 periods: non-finite values")
+    return launches
+
+
+def phase_lp_consensus(kernels, dev, card):
+    from scipy.optimize import linprog
+
+    from dprox_tpu_torch.algo.lp import solve_consensus_lp
+    from dprox_tpu_torch.contrib.energy_system import extensive_form, synthetic_cep_scenarios
+
+    inst = synthetic_cep_scenarios(64, 8, 8)
+    c, A_ub, A_eq, b_ub, b_eq_s, sh = inst
+    cf, Auf, Aef, buf, bef = extensive_form(*inst)
+    ref = linprog(cf, Auf, buf, Aef, bef, bounds=(0, None), method="highs")
+    if not ref.success:
+        raise AssertionError(f"HiGHS failed on the extensive form: {ref.message}")
+    kw = dict(eval_freq=50, tol=1e-3, rho_ph=1.0, verbose=False, fused=True,
+              dtype=torch.float32)
+    solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, max_outer=50, **kw)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    z, xs, _, res = solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, max_outer=300, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    gap = (res["objective"] - ref.fun) / abs(ref.fun)
+    emit({"phase": "lp_consensus", "config": "synthetic_cep_scenarios(64, 8, 8), float32, "
+          "solve_consensus_lp(max_outer=300, eval_freq=50, tol=1e-3, rho_ph=1.0, fused=True)",
+          "objective": res["objective"], "highs_extensive_form_objective": float(ref.fun),
+          "objective_gap": gap, "outer_iterations": res["outer_iters"],
+          "r_nonanticipativity": res["r_nonanticipativity"], "r_primal": res["r_primal"],
+          "rho_ph_final": res["rho_ph_final"], "warm_s": seconds,
+          "s_per_outer_iteration": seconds / res["outer_iters"], "launches": launches,
+          "pcg_iterations": (launches["bdot"] - 10 * res["outer_iters"]) // 2,
+          "kernels_on_this_path": "bdot only: the scenario-batched applies A @ X are "
+                                  "torch.bmm + index_add over the tiles, as the JAX package "
+                                  "leaves them to dot_general outside any Pallas kernel",
+          "card": card})
+    expected = dict.fromkeys(launches, 0) | {"bdot": launches["bdot"]}
+    if launches != expected or launches["bdot"] <= 0:
+        raise AssertionError(f"lp_consensus: launch counts {launches} != {expected}")
+    if xs.shape != (8, c.shape[0]) or not (np.isfinite(xs).all() and np.isfinite(z).all()):
+        raise AssertionError("lp_consensus: bad output shape or non-finite values")
+    if not abs(gap) <= CONSENSUS_OBJECTIVE_TOL:
+        raise AssertionError(f"lp_consensus: objective gap {gap} > {CONSENSUS_OBJECTIVE_TOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -702,17 +1177,20 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     phase_build(kernels)
-    measured = phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
+    measured = (phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
+                + phase_check_bsr(kernels, dev))
     solver, b, launches = phase_main(dp, kernels, dev)
     phase_marginal(dp, solver, b, card)
     del solver, b
     by_path = {"flagship": launches, "nonneg": phase_nonneg(dp, kernels, dev, card)}
     joint = phase_joint(dp, kernels, dev, card)
     by_path.update(joint_cg_pallas=joint["cg_pallas"], joint_default_pcg=joint["default_pcg"])
+    by_path["lp"] = phase_lp(kernels, dev, card)
+    phase_lp_consensus(kernels, dev, card)
     # each kernel's count on the main-path solve that is its own
     own = {"tv_denoise_chw": "flagship", "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
-           "fused_cg_tail": "joint_cg_pallas"}
+           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": "lp"}
     for k in measured:
         k["launches"] = by_path[own[k["name"]]][k["name"]]
         k["launches_counted_on"] = own[k["name"]]

@@ -14,12 +14,15 @@ prior; deconvolution with ``nonneg`` / ``norm1`` / ``norm2`` (the
 and the CG x-update for objectives no transform diagonalizes (joint
 demosaic + deconvolution: ``mosaic(conv(x))``), with the differentiable
 ``linear_solve``, the solvers of ``linalg`` and the ``bdot`` and
-``fused_cg_tail`` kernels.
+``fused_cg_tail`` kernels. Beside the imaging solvers, the LP path
+(``dp.algo.lp``: ``solve_lp``, ``LPProblem``, ``LPSolverADMM``, the
+scenario-consensus solver, and ``BSRMat`` on the ``bsr_matvec`` kernel)
+with the energy-planning instances of ``dp.contrib.energy_system``.
 """
 
 __version__ = "0.1.0"
 
-from . import algo, linalg, linop, ops, proxfn, utils
+from . import algo, contrib, linalg, linop, ops, proxfn, utils
 from .algo import ADMM, Algorithm, compile, log_descent
 from .linalg import LinearSolveConfig, linear_solve
 from .linop import (Constant, LinOp, Placeholder, Variable, adjoint, conv, est_norm,

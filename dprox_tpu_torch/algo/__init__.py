@@ -1,3 +1,4 @@
+from . import lp
 from .base import Algorithm
 from .admm import ADMM
 from .primitives import compile, SOLVERS

@@ -1,11 +1,12 @@
 // Deterministic per-batch-row reductions shared by bdot.cu and cg_tail.cu.
 //
-// A row of D floats is reduced in two fixed-order steps: `reduce_blocks(D)`
+// A row of D elements is reduced in two fixed-order steps: `reduce_blocks(D)`
 // blocks each write one partial sum of their grid-stride share of the row to
 // a workspace, and whoever needs the row's total sums the partials with
 // `reduce_partials`. No atomics: the order of every addition depends only on
 // D and the launch geometry, so two runs give the same bits, and every block
-// that sums the same partials gets the same total. Accumulation is float32.
+// that sums the same partials gets the same total. Accumulation is in the
+// element type T: float32 everywhere, and float64 in bdot.cu's double entry.
 // Compiled with --fmad=false: a product and its accumulation round
 // separately, as in the unfused PyTorch version.
 
@@ -36,37 +37,40 @@ __device__ __forceinline__ float clamp_min(float v, float lo) {
 }
 
 // Sum of `v` over the block, returned to every thread. Warp shuffles, then
-// one slot per warp in `smem` (>= 32 floats), added in warp order.
-__device__ __forceinline__ float block_sum(float v, float* smem) {
+// one slot per warp in `smem` (>= 32 elements), added in warp order.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* smem) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   __syncthreads();  // smem may still be read from an earlier call
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
   __syncthreads();
-  float total = 0.0f;
+  T total = T(0);
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += smem[w];
   return total;
 }
 
 // Sum of a row's `n` partials, the same value in every thread of every block.
-__device__ __forceinline__ float reduce_partials(const float* partial, int n,
-                                                 float* smem) {
-  float acc = 0.0f;
+template <typename T>
+__device__ __forceinline__ T reduce_partials(const T* partial, int n, T* smem) {
+  T acc = T(0);
   for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partial[i];
   return block_sum(acc, smem);
 }
 
 // partial[row * gridDim.x + blockIdx.x] = this block's share of <a_row, b_row>.
-// Grid (reduce_blocks(D), B). VEC: D % 4 == 0 and both bases 16-byte aligned.
-template <bool VEC>
-__global__ void dot_partial_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ b,
-                                   float* __restrict__ partial, long long D) {
-  __shared__ float smem[32];
+// Grid (reduce_blocks(D), B). VEC (float only): D % 4 == 0 and both bases
+// 16-byte aligned.
+template <bool VEC, typename T>
+__global__ void dot_partial_kernel(const T* __restrict__ a,
+                                   const T* __restrict__ b,
+                                   T* __restrict__ partial, long long D) {
+  static_assert(!VEC || sizeof(T) == sizeof(float), "float4 path is float only");
+  __shared__ T smem[32];
   const long long base = (long long)blockIdx.y * D;
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long step = (long long)gridDim.x * blockDim.x;
-  float acc = 0.0f;
-  if (VEC) {
+  T acc = T(0);
+  if constexpr (VEC) {
     const float4* a4 = reinterpret_cast<const float4*>(a + base);
     const float4* b4 = reinterpret_cast<const float4*>(b + base);
     for (long long i = start; i < D / 4; i += step) {
@@ -79,7 +83,7 @@ __global__ void dot_partial_kernel(const float* __restrict__ a,
   } else {
     for (long long i = start; i < D; i += step) acc += a[base + i] * b[base + i];
   }
-  const float total = block_sum(acc, smem);
+  const T total = block_sum(acc, smem);
   if (threadIdx.x == 0) partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = total;
 }
 

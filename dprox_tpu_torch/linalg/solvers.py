@@ -7,10 +7,13 @@ meets its tolerance). The JAX package runs them as ``lax.while_loop``;
 here they are eager Python ``while`` loops with the same condition, and
 reading that condition costs one device-to-host sync per iteration. The
 implicit-gradient wrapper in ``solve.py`` means these loops are never
-differentiated through; they run without autograd.
+differentiated through; they run without autograd. The exception is
+``cg_unrolled``: a fixed number of iterations with no host read, which
+plain autograd differentiates (the LP path's hyperparameter pretraining).
 
 ``bdot`` is the batched-dot kernel (ops/kernels.py::bdot) for CUDA
-float32 operands and plain torch for CPU tensors.
+float32 or float64 operands, differentiable in both, and plain torch for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -61,6 +64,33 @@ def cg(A: Callable, b: Array, x0: Optional[Array] = None, rtol: float = 1e-6,
         p = r + _bexpand(beta, p) * p
         rs = rs_new
         k += 1
+    return x
+
+
+def cg_unrolled(A: Callable, b: Array, x0: Optional[Array] = None,
+                rtol: float = 1e-6, max_iters: int = 100) -> Array:
+    """CG with a fixed trip count and no host read, differentiable by
+    plain autograd. Batch elements that have converged are frozen by
+    masking, so further iterations leave them where they are."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    p = r
+    rs = bdot(r, r)
+    tol = rtol * _clamp(torch.sqrt(bdot(b, b)))
+    zero, one = torch.zeros_like(rs), torch.ones_like(rs)
+    for _ in range(max_iters):
+        active = torch.sqrt(rs) > tol
+        Ap = A(p)
+        pAp = bdot(p, Ap)
+        # safe denominators: a masked-out element must not divide by ~0, or
+        # torch.where passes NaN into the backward pass
+        alpha = torch.where(active, rs, zero) / torch.where(active, pAp, one)
+        x = x + _bexpand(alpha, x) * p
+        r = r - _bexpand(alpha, r) * Ap
+        rs_new = torch.where(active, bdot(r, r), rs)
+        beta = torch.where(active, rs_new, zero) / torch.where(active, rs, one)
+        p = r + _bexpand(beta, p) * p
+        rs = rs_new
     return x
 
 

@@ -11,7 +11,9 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
 * ``bdot`` (csrc/bdot.cu) <- ``bdot_pallas``: per-batch dot products,
   deterministic;
 * ``fused_cg_tail`` (csrc/cg_tail.cu) <- ``fused_cg_tail``: one CG
-  iteration minus the matvec (both reductions and the three axpys).
+  iteration minus the matvec (both reductions and the three axpys);
+* ``bsr_matvec`` (csrc/bsr_matvec.cu) <- ``bsr_matvec``: the block-sparse
+  matrix-vector product of the LP path, float32 and float64.
 
 The sources in ``csrc/`` are CUDA C++ for ``sm_90a`` with a plain C
 interface (``reduce.cuh`` is the header ``bdot.cu`` and ``cg_tail.cu``
@@ -41,7 +43,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"tv_denoise": "tv_denoise.cu", "freq_divide": "freq_divide.cu",
            "fused_admm_update": "fused_admm_update.cu", "bdot": "bdot.cu",
-           "cg_tail": "cg_tail.cu"}
+           "cg_tail": "cg_tail.cu", "bsr_matvec": "bsr_matvec.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -60,18 +62,23 @@ _SIGNATURES = {
     },
     "bdot": {
         "dprox_bdot": [_P, _P, _P, _P, _I, _LL, _P],
+        "dprox_bdot_f64": [_P, _P, _P, _P, _I, _LL, _P],
         "dprox_bdot_workspace": [_I, _LL],
     },
     "cg_tail": {
         "dprox_cg_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P],
         "dprox_cg_tail_workspace": [_I, _LL],
     },
+    "bsr_matvec": {
+        "dprox_bsr_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
                  "freq_divide": "dprox_freq_divide_error_string",
                  "fused_admm_update": "dprox_fused_admm_update_error_string",
                  "bdot": "dprox_bdot_error_string",
-                 "cg_tail": "dprox_cg_tail_error_string"}
+                 "cg_tail": "dprox_cg_tail_error_string",
+                 "bsr_matvec": "dprox_bsr_matvec_error_string"}
 
 _libs: dict = {}  # name -> loaded ctypes.CDLL
 
@@ -266,22 +273,31 @@ freq_divide.launches = 0
 _ADMM_KINDS = {"nonneg": 0, "soft": 1}
 
 
-def _float32_only(t, what: str):
-    """The three solver kernels take float32; float64 and complex states
-    belong to solves that are not ported yet."""
-    if t.dtype in (torch.float64, torch.complex64, torch.complex128):
+def _real_dtype(t, what: str, kernel: str, dtypes=(torch.float32,)):
+    """Raises unless ``t`` has one of the real dtypes ``kernel`` is built
+    for. Complex solver states have no kernel yet (they come with the CS-MRI
+    slice), so they are NotImplementedError; so is float64 where the kernel
+    is float32 only. Any other dtype is a TypeError."""
+    if t.dtype in dtypes:
+        return
+    takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+    if t.dtype in (torch.complex64, torch.complex128):
         raise NotImplementedError(
-            f"{what} is {t.dtype}: the CUDA kernel takes float32 only; float64 "
-            "and complex solver states come with the CS-MRI slice")
+            f"{what} is {t.dtype}: the {kernel} CUDA kernel takes {takes}; complex "
+            "solver states come with the CS-MRI slice")
+    if t.dtype == torch.float64:
+        raise NotImplementedError(
+            f"{what} is float64: the {kernel} CUDA kernel takes {takes} only")
+    raise TypeError(f"{what} must be {takes} for the {kernel} kernel, got {t.dtype}")
 
 
-def _rows(ts, names):
-    """Checks same-shape contiguous float32 [B, ...] CUDA operands; returns
-    (B, D)."""
+def _rows(ts, names, kernel: str, dtypes=(torch.float32,)):
+    """Checks same-shape, same-dtype contiguous [B, ...] CUDA operands of a
+    dtype ``kernel`` takes; returns (B, D)."""
     first = ts[0]
+    _real_dtype(first, names[0], kernel, dtypes)
     for t, name in zip(ts, names):
-        _float32_only(t, name)
-        _cuda_tensor(t, name, torch.float32, first.device)
+        _cuda_tensor(t, name, first.dtype, first.device)
         if t.shape != first.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(first.shape)}")
@@ -326,7 +342,7 @@ def fused_admm_update(Kx: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
         raise ValueError(f"kind must be 'nonneg' or 'soft', got {kind!r}")
     if _on_cpu(Kx):
         return fused_admm_update_plain(Kx, u, lam, kind)
-    B, D = _rows((Kx, u), ("Kx", "u"))
+    B, D = _rows((Kx, u), ("Kx", "u"), "fused_admm_update")
     if kind == "soft":
         per_batch, lam_ptr = _per_item_scalar(lam, "lam", B, Kx.device), lam.data_ptr()
     else:
@@ -355,26 +371,51 @@ def bdot_plain(p, q):
     return torch.sum(p.reshape(B, -1) * q.reshape(B, -1), dim=1)
 
 
+def _bdot_launch(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    B, D = _rows((p, q), ("p", "q"), "bdot", (torch.float32, torch.float64))
+    lib = _lib("bdot")
+    out = torch.empty(B, dtype=p.dtype, device=p.device)
+    work = torch.empty(lib.dprox_bdot_workspace(B, D), dtype=p.dtype, device=p.device)
+    entry = lib.dprox_bdot if p.dtype == torch.float32 else lib.dprox_bdot_f64
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(p.data_ptr(), q.data_ptr(), out.data_ptr(), work.data_ptr(),
+                    B, D, stream)
+    _check(err, "bdot", "bdot")
+    bdot.launches += 1
+    return out
+
+
+class _BdotFn(torch.autograd.Function):
+    """The kernel's forward with the gradient of a dot product:
+    d<p, q>/dp = q, d<p, q>/dq = p, each scaled by its row's cotangent."""
+
+    @staticmethod
+    def forward(ctx, p, q):
+        ctx.save_for_backward(p, q)
+        return _bdot_launch(p, q)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, q = ctx.saved_tensors
+        g = g.reshape((-1,) + (1,) * (p.ndim - 1))
+        return (g * q if ctx.needs_input_grad[0] else None,
+                g * p if ctx.needs_input_grad[1] else None)
+
+
 def bdot(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Per-batch dot products ``<p_b, q_b>`` over every dim but the first;
     returns [B].
 
-    On the card: contiguous float32 operands, float32 accumulation, and a
-    fixed summation order (no atomics), so two calls give the same bits.
+    On the card: contiguous float32 or float64 operands, accumulation in
+    their type, and a fixed summation order (no atomics), so two calls
+    give the same bits. Differentiable in both operands on either device.
     """
     if _on_cpu(p):
         return bdot_plain(p, q)
-    B, D = _rows((p, q), ("p", "q"))
-    lib = _lib("bdot")
-    out = torch.empty(B, dtype=torch.float32, device=p.device)
-    work = torch.empty(lib.dprox_bdot_workspace(B, D), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dprox_bdot(p.data_ptr(), q.data_ptr(), out.data_ptr(), work.data_ptr(),
-                             B, D, stream)
-    _check(err, "bdot", "bdot")
-    bdot.launches += 1
-    return out
+    if torch.is_grad_enabled() and (p.requires_grad or q.requires_grad):
+        return _BdotFn.apply(p, q)
+    return _bdot_launch(p, q)
 
 
 bdot.launches = 0
@@ -407,8 +448,8 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     """
     if _on_cpu(x):
         return fused_cg_tail_plain(x, r, p, Ap, rs)
-    B, D = _rows((x, r, p, Ap), ("x", "r", "p", "Ap"))
-    _float32_only(rs, "rs")
+    B, D = _rows((x, r, p, Ap), ("x", "r", "p", "Ap"), "fused_cg_tail")
+    _real_dtype(rs, "rs", "fused_cg_tail")
     _cuda_tensor(rs, "rs", torch.float32, x.device, ndim=1)
     if rs.numel() != B:
         raise ValueError(f"rs must hold {B} values, got {rs.numel()}")
@@ -430,9 +471,90 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
 
 fused_cg_tail.launches = 0
 
+# --------------------------------------------------------------------------- #
+# Block-sparse matrix-vector product
+# --------------------------------------------------------------------------- #
+
+def bsr_matvec_plain(tiles, idx_in, idx_out, x_blocks, n_out_blocks: int):
+    """Plain PyTorch version of ``bsr_matvec``: per-tile products, then a
+    sum into each tile's output block."""
+    prod = torch.einsum("tij,tj->ti", tiles, x_blocks[idx_in.long()])
+    out = torch.zeros((n_out_blocks, tiles.shape[1]), dtype=tiles.dtype,
+                      device=tiles.device)
+    return out.index_add_(0, idx_out.long(), prod)
+
+
+def bsr_row_ptr(idx_out: torch.Tensor, n_out_blocks: int) -> torch.Tensor:
+    """[n_out_blocks + 1] int32 offsets of each output block's tiles in the
+    sorted ``idx_out``; computed on ``idx_out``'s device without a host read."""
+    edges = torch.arange(n_out_blocks + 1, dtype=idx_out.dtype, device=idx_out.device)
+    return torch.searchsorted(idx_out.contiguous(), edges).to(torch.int32)
+
+
+def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
+               x_blocks: torch.Tensor, n_out_blocks: int,
+               row_ptr: torch.Tensor | None = None) -> torch.Tensor:
+    """``y[idx_out[t]] += tiles[t] @ x_blocks[idx_in[t]]`` over (T, bm, bn)
+    tiles; ``x_blocks`` is (Nb, bn); returns (n_out_blocks, bm), zero where
+    no tile lands.
+
+    ``idx_out`` must be sorted (tiles ordered by output block), and every
+    ``idx_in`` must name a row of ``x_blocks``. ``row_ptr`` is
+    ``bsr_row_ptr(idx_out, n_out_blocks)``; an operator that is applied
+    many times computes it once and passes it, and then vouches for its
+    indices: without ``row_ptr`` the wrapper checks them on the card (one
+    host read). On the card: contiguous
+    float32 or float64 tiles and ``x_blocks`` of one dtype, int32 indices;
+    products and sums in that dtype, each output written once in a fixed
+    order, so two calls give the same bits. ``T == 0`` returns zeros
+    without a launch. Not differentiable by itself: ``algo.lp.utils.BSRMat``
+    wraps it with its transposed apply as the backward.
+    """
+    T, bm, bn = tiles.shape
+    n_out_blocks = int(n_out_blocks)
+    if _on_cpu(tiles):
+        return bsr_matvec_plain(tiles, idx_in, idx_out, x_blocks, n_out_blocks)
+    dev = tiles.device
+    _real_dtype(tiles, "tiles", "bsr_matvec", (torch.float32, torch.float64))
+    _cuda_tensor(tiles, "tiles", tiles.dtype, dev, ndim=3)
+    _cuda_tensor(x_blocks, "x_blocks", tiles.dtype, dev, ndim=2)
+    _cuda_tensor(idx_in, "idx_in", torch.int32, dev, ndim=1)
+    if x_blocks.shape[1] != bn or idx_in.numel() != T or n_out_blocks < 1 or bm < 1:
+        raise ValueError(f"tiles {tuple(tiles.shape)}, x_blocks {tuple(x_blocks.shape)}, "
+                         f"{idx_in.numel()} input indices and {n_out_blocks} output "
+                         "blocks do not fit together")
+    if T == 0:
+        return torch.zeros((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
+    if row_ptr is None:
+        _cuda_tensor(idx_out, "idx_out", torch.int32, dev, ndim=1)
+        if idx_out.numel() != T:
+            raise ValueError(f"idx_out must hold {T} values, got {idx_out.numel()}")
+        in_range = ((idx_out[1:] >= idx_out[:-1]).all() & (idx_out[0] >= 0)
+                    & (idx_out[-1] < n_out_blocks) & (idx_in >= 0).all()
+                    & (idx_in < x_blocks.shape[0]).all())
+        if not bool(in_range):
+            raise ValueError("idx_out must be sorted and within the output blocks, and "
+                             "idx_in within the rows of x_blocks")
+        row_ptr = bsr_row_ptr(idx_out, n_out_blocks)
+    _cuda_tensor(row_ptr, "row_ptr", torch.int32, dev, ndim=1)
+    if row_ptr.numel() != n_out_blocks + 1:
+        raise ValueError(f"row_ptr must hold {n_out_blocks + 1} values, got {row_ptr.numel()}")
+    out = torch.empty((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("bsr_matvec").dprox_bsr_matvec(
+            tiles.data_ptr(), idx_in.data_ptr(), row_ptr.data_ptr(), x_blocks.data_ptr(),
+            out.data_ptr(), n_out_blocks, bm, bn, int(tiles.dtype == torch.float64), stream)
+    _check(err, "bsr_matvec", "bsr_matvec")
+    bsr_matvec.launches += 1
+    return out
+
+
+bsr_matvec.launches = 0
+
 KERNELS = {"tv_denoise_chw": tv_denoise_chw, "freq_divide": freq_divide,
            "fused_admm_update": fused_admm_update, "bdot": bdot,
-           "fused_cg_tail": fused_cg_tail}
+           "fused_cg_tail": fused_cg_tail, "bsr_matvec": bsr_matvec}
 
 
 def reset_launches():

@@ -180,13 +180,21 @@ def test_fused_cg_tail_clamps_and_batch_independence(cuda):
 def test_solver_kernels_raise_on_what_they_do_not_take(cuda):
     a = torch.rand(2, 3, 8, 8, device=cuda)
     lam = torch.full((1,), 0.1, device=cuda)
-    for bad in (a.double(), a.to(torch.complex64)):
-        with pytest.raises(NotImplementedError, match="CS-MRI"):
-            kernels.bdot(bad, bad)
-        with pytest.raises(NotImplementedError, match="CS-MRI"):
-            kernels.fused_admm_update(bad, bad, lam)
-        with pytest.raises(NotImplementedError, match="CS-MRI"):
-            kernels.fused_cg_tail(bad, bad, bad, bad, torch.ones(2, device=cuda))
+    bad = a.to(torch.complex64)  # complex states: no kernel yet
+    with pytest.raises(NotImplementedError, match="CS-MRI"):
+        kernels.bdot(bad, bad)
+    with pytest.raises(NotImplementedError, match="CS-MRI"):
+        kernels.fused_admm_update(bad, bad, lam)
+    with pytest.raises(NotImplementedError, match="CS-MRI"):
+        kernels.fused_cg_tail(bad, bad, bad, bad, torch.ones(2, device=cuda))
+    bad = a.double()  # float64: bdot takes it, the other two say they do not
+    assert kernels.bdot(bad, bad).dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="fused_admm_update CUDA kernel takes float32"):
+        kernels.fused_admm_update(bad, bad, lam)
+    with pytest.raises(NotImplementedError, match="fused_cg_tail CUDA kernel takes float32"):
+        kernels.fused_cg_tail(bad, bad, bad, bad, torch.ones(2, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.bdot(a, a.double())  # mixed dtypes
     with pytest.raises(TypeError):
         kernels.bdot(a.half(), a.half())
     with pytest.raises(ValueError):
@@ -203,6 +211,158 @@ def test_solver_kernels_raise_on_what_they_do_not_take(cuda):
         kernels.fused_admm_update(a, a, 0.1, kind="soft")  # host float scalar
     with pytest.raises(ValueError):
         kernels.fused_cg_tail(a, a, a, a, torch.ones(3, device=cuda))
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_bdot_float64_kernel_matches_plain(cuda, shape):
+    """float64 sums in another order: 1e-12 of sum |p q|; same bits twice."""
+    rng = np.random.RandomState(7)
+    p, q = (torch.from_numpy(rng.randn(*shape)).to(cuda) for _ in range(2))
+    before = kernels.bdot.launches
+    got, again = kernels.bdot(p, q), kernels.bdot(p, q)
+    assert kernels.bdot.launches == before + 2
+    ref = kernels.bdot_plain(p, q)
+    scale = (p * q).abs().flatten(1).sum(1)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (shape[0],) and torch.equal(got, again)
+    assert bool(((got - ref).abs() <= 1e-12 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bdot_on_cuda_is_differentiable(cuda, dtype):
+    """d<p, q>/dp = q and d/dq = p per row, through the kernel's forward."""
+    rng = np.random.RandomState(8)
+    p, q = (torch.from_numpy(rng.randn(3, 5, 7)).to(device=cuda, dtype=dtype).requires_grad_()
+            for _ in range(2))
+    w = torch.tensor([1.0, -2.0, 0.5], device=cuda, dtype=dtype)
+    before = kernels.bdot.launches
+    gp, gq = torch.autograd.grad((kernels.bdot(p, q) * w).sum(), (p, q))
+    assert kernels.bdot.launches == before + 1
+    assert torch.equal(gp, w.reshape(3, 1, 1) * q.detach())
+    assert torch.equal(gq, w.reshape(3, 1, 1) * p.detach())
+    with torch.no_grad():
+        assert not kernels.bdot(p, q).requires_grad
+
+
+def _bsr_operator(cuda, shape, dtype, bm, bn, density=0.05, seed=3):
+    import scipy.sparse as sp
+
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    A = sp.random(*shape, density=density, random_state=np.random.RandomState(seed), format="csr")
+    return A, BSRMat(A, bm=bm, bn=bn, dtype=dtype, device=cuda)
+
+
+BSR_CASES = [((70, 33), 128, 128), ((256, 300), 128, 128), ((13, 513), 128, 128),
+             ((1000, 700), 128, 128), ((150, 90), 32, 16), ((90, 150), 16, 48),
+             ((200, 100), 5, 7), ((300, 40), 200, 33)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,bm,bn", BSR_CASES)
+def test_bsr_matvec_kernel_matches_plain_and_scipy(cuda, shape, bm, bn, dtype, tol):
+    """Both directions; sums in another order than the plain version's:
+    1e-5 (float32) / 1e-12 (float64) of the largest entry; same bits twice."""
+    A, op = _bsr_operator(cuda, shape, dtype, bm, bn)
+    rng = np.random.RandomState(0)
+    for tiles, idx_in, idx_out, ptr, n_in, n_out, M in (
+            (op.tiles, op.col_ids, op.row_ids, op.row_ptr, op.Nb, op.Mb, A),
+            (op.tilesT, op.row_idsT, op.col_idsT, op.row_ptrT, op.Mb, op.Nb, A.T)):
+        x = torch.from_numpy(rng.rand(n_in, tiles.shape[2])).to(device=cuda, dtype=dtype)
+        before = kernels.bsr_matvec.launches
+        got = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out, row_ptr=ptr)
+        again = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out)  # derives row_ptr
+        assert kernels.bsr_matvec.launches == before + 2
+        ref = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, x, n_out)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    x = rng.rand(shape[1])
+    got = (op @ torch.from_numpy(x).to(device=cuda, dtype=dtype)).double().cpu().numpy()
+    assert np.abs(got - A @ x).max() <= tol * np.abs(A @ x).max()
+    y = rng.rand(shape[0])
+    got = (op.T @ torch.from_numpy(y).to(device=cuda, dtype=dtype)).double().cpu().numpy()
+    assert np.abs(got - A.T @ y).max() <= tol * np.abs(A.T @ y).max()
+
+
+def test_bsr_matvec_empty_output_blocks_and_no_tiles(cuda):
+    import scipy.sparse as sp
+
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    A = sp.lil_matrix((5 * 16, 3 * 16))
+    A[0:3, 0:4] = 1.5
+    A[70:75, 40:44] = -2.0
+    op = BSRMat(A.tocsr(), bm=16, bn=16, dtype=torch.float32, device=cuda)
+    x = torch.arange(48, dtype=torch.float32, device=cuda)
+    out = op @ x
+    assert float(out[16:64].abs().max()) == 0.0
+    np.testing.assert_allclose(out.cpu().numpy(), A.tocsr() @ x.cpu().numpy(), rtol=1e-6)
+    empty = BSRMat(sp.csr_matrix((40, 30)), bm=16, bn=16, dtype=torch.float32, device=cuda)
+    before = kernels.bsr_matvec.launches
+    assert torch.equal(empty @ torch.ones(30, device=cuda), torch.zeros(40, device=cuda))
+    assert kernels.bsr_matvec.launches == before  # no tiles: zeros without a launch
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_bsr_backward_is_the_transposed_kernel(cuda, dtype, rtol):
+    """grad of sum((A x)^2) = 2 A^T A x: one forward launch, one backward
+    launch on the other tile ordering."""
+    A, op = _bsr_operator(cuda, (40, 30), dtype, 16, 16, density=0.2, seed=1)
+    x0 = np.random.RandomState(1).rand(30)
+    x = torch.from_numpy(x0).to(device=cuda, dtype=dtype).requires_grad_()
+    before = kernels.bsr_matvec.launches
+    g, = torch.autograd.grad(torch.sum((op @ x) ** 2), x)
+    assert kernels.bsr_matvec.launches == before + 2
+    np.testing.assert_allclose(g.double().cpu().numpy(), 2 * A.T @ (A @ x0), rtol=rtol)
+    y0 = np.random.RandomState(2).rand(40)
+    y = torch.from_numpy(y0).to(device=cuda, dtype=dtype).requires_grad_()
+    gT, = torch.autograd.grad(torch.sum((op.T @ y) ** 2), y)
+    np.testing.assert_allclose(gT.double().cpu().numpy(), 2 * A @ (A.T @ y0), rtol=rtol)
+
+
+def test_bsr_matvec_raises_on_what_it_does_not_take(cuda):
+    _, op = _bsr_operator(cuda, (70, 33), torch.float32, 16, 16)
+    x = torch.rand(op.Nb, 16, device=cuda)
+    args = (op.tiles, op.col_ids, op.row_ids, x, op.Mb)
+    with pytest.raises(TypeError):
+        kernels.bsr_matvec(op.tiles.half(), *args[1:])
+    with pytest.raises(TypeError):
+        kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids, x.double(), op.Mb)
+    with pytest.raises(TypeError):
+        kernels.bsr_matvec(op.tiles, op.col_ids.long(), op.row_ids, x, op.Mb)
+    with pytest.raises(ValueError):
+        kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids, x[:, :8], op.Mb)
+    with pytest.raises(ValueError):
+        kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids, x.cpu(), op.Mb)
+    with pytest.raises(ValueError):
+        kernels.bsr_matvec(*args, row_ptr=op.row_ptr[:-1].contiguous())
+    with pytest.raises(ValueError, match="sorted"):
+        kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids.flip(0).contiguous(), x, op.Mb)
+    with pytest.raises(ValueError, match="idx_in"):
+        kernels.bsr_matvec(op.tiles, op.col_ids + op.Nb, op.row_ids, x, op.Mb)
+    with pytest.raises(NotImplementedError, match="CS-MRI"):
+        kernels.bsr_matvec(op.tiles.to(torch.complex64), *args[1:])
+
+
+def test_lp_solve_on_cuda_matches_cpu(cuda):
+    """The LP path on the card (kernels) against itself on the CPU (plain
+    versions), float64: same iteration count, x to 1e-6."""
+    from dprox_tpu_torch.algo import lp
+    from dprox_tpu_torch.contrib.energy_system import synthetic_cep_model
+
+    c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(16, 4)
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = lp.LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=torch.float64, device=device)
+        kernels.reset_launches()
+        x, res = lp.LPSolverADMM(verbose=False).solve_fused(p, max_iters=500)
+        counts = kernels.launch_counts()
+        assert (counts["bsr_matvec"] > 0) == (device == "cuda")
+        assert (counts["bdot"] > 0) == (device == "cuda")
+        out[device] = (x.cpu().numpy(), res["iters"])
+    assert out["cpu"][1] == out["cuda"][1]
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-6)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

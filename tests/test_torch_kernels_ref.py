@@ -146,7 +146,10 @@ def test_solver_wrappers_take_plain_version_on_cpu():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         kernels.fused_admm_update(t, t, torch.tensor(0.2), "l2")
-    assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide",
+    tiles, ids = torch.ones(2, 3, 4), torch.tensor([0, 1], dtype=torch.int32)
+    assert torch.equal(kernels.bsr_matvec(tiles, ids, ids, torch.ones(2, 4), 2),
+                       kernels.bsr_matvec_plain(tiles, ids, ids, torch.ones(2, 4), 2))
+    assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide", "bsr_matvec",
                                             "fused_admm_update", "bdot", "fused_cg_tail"}
     assert set(kernels.launch_counts().values()) == {0}
 
