@@ -12,7 +12,9 @@ exits non-zero):
 2. check    - hold each kernel against its plain PyTorch version on the
               card, at the main path's shapes and at odd sizes, and time
               kernel, plain version and library call with CUDA events
-              (three lines: check, check_solver_kernels, check_bsr).
+              (three lines: check, check_solver_kernels, check_bsr; the
+              last holds both routes of the LP operator, dense tiles and
+              compressed rows, on every operator and times both).
 3. main     - the flagship PnP-ADMM deconvolution at 512x512x3 with the
               distilled_color_tv prior (FFDNet nc=96 nb=10 + TV), through
               dp.compile(...).solve(...), with the kernels' launch counts
@@ -38,14 +40,19 @@ exits non-zero):
               through LPProblem / LPSolverADMM.solve_fused: convergence,
               objective against HiGHS (scipy.optimize.linprog, solved
               here), feasibility against the JAX package on the CPU,
-              bsr_matvec and bdot launch counts against the iteration
-              counts, one ADMM iteration's stages; then hyperparameter
-              pretraining through the kernel's backward (pretrain_lp,
-              solve_lp), the chunked solve at synthetic_cep_model(2048, 16)
-              and a float64 solve at synthetic_cep_model(64, 8).
-8. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
+              csr_matvec (the operator's route) and bdot launch counts
+              against the iteration counts, one ADMM iteration's stages;
+              then hyperparameter pretraining through the kernel's
+              backward (pretrain_lp, solve_lp), the chunked solve at
+              synthetic_cep_model(2048, 16) and a float64 solve at
+              synthetic_cep_model(64, 8).
+8. lp_tiles - a block-angular LP with a planted optimum, whose dense
+              blocks take the tile route: bsr_matvec launch counts against
+              the iteration counts, objective and feasibility against
+              HiGHS.
+9. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
               solve_consensus_lp(fused=True) in float32 against the HiGHS
-              optimum of the extensive form.
+              optimum of the extensive form, twice, bit for bit.
 
 Then one line {"kernels": [...]}, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}. float32 convolutions and matmuls
@@ -129,8 +136,8 @@ LP_OBJECTIVE_TOL = 1e-3         # |c @ x - HiGHS| / |HiGHS|
 LP_GAP_SLACK = 1e-3             # each gap <= r_norm * (1 + slack) + 1e-6
 LP_X_MIN = -1e-2
 CONSENSUS_OBJECTIVE_TOL = 5e-3  # against the extensive form's HiGHS optimum
-BSR_REL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # max |kernel - plain| / max |plain|
-BSR_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
+SPMV_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}  # max |kernel - plain| / max |plain|
+SPMV_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
 
 TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
@@ -738,18 +745,93 @@ def equilibrated_cep(n_periods, n_tech):
     return LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=torch.float32).A_host
 
 
-def _directions(op, A):
-    """(name, tiles, idx_in, idx_out, row_ptr, n_in_blocks, n_out_blocks,
-    scipy matrix) of the forward and the transposed apply of a BSRMat."""
-    return [("forward", op.tiles, op.col_ids, op.row_ids, op.row_ptr, op.Nb, op.Mb, A),
-            ("transposed", op.tilesT, op.row_idsT, op.col_idsT, op.row_ptrT, op.Mb, op.Nb,
-             A.T.tocsr())]
+def arrow(n_blocks, b, seed=0):
+    """Block-angular (arrow) matrix, scipy CSR: dense b x b diagonal blocks
+    and a dense first block column, entries in [0.5, 1.5); 2 n_blocks - 1
+    tiles of b x b."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    dense = lambda: sp.csr_matrix(0.5 + rng.rand(b, b))
+    grid = [[None] * n_blocks for _ in range(n_blocks)]
+    for i in range(n_blocks):
+        grid[i][i] = dense()
+        if i:
+            grid[i][0] = dense()
+    return sp.bmat(grid, format="csr")
+
+
+def long_rows(rng):
+    """6000 x 5000 random rows (~10 non-zeros) with rows of 4500, 2000 and
+    129 non-zeros and a column of 5000: each direction has a row longer
+    than CSR_CHUNK (4096) to cut into pieces."""
+    import scipy.sparse as sp
+
+    A = sp.random(6000, 5000, density=0.002, random_state=rng, format="lil")
+    for r, k in [(6, 4500), (7, 2000), (8, 129)]:
+        A[r, rng.choice(5000, k, replace=False)] = 1.0 + rng.rand(k)
+    A[rng.choice(6000, 5000, replace=False), 11] = 1.0 + rng.rand(5000)[:, None]
+    return sp.csr_matrix(A)
+
+
+def _routes(kernels, op, A, transposed, dtype, dev):
+    """Both routes' kernel arguments for one direction of a BSRMat: the
+    tiles with their split (the operator's own on the tile route), and the
+    compressed rows of the same matrix from scipy with their split (on the
+    compressed route, equal to the operator's own: checked)."""
+    import scipy.sparse as sp
+
+    M = sp.csr_matrix(A.T if transposed else A, copy=True)
+    M.eliminate_zeros()
+    M.sort_indices()
+    if transposed:
+        tiles, idx_in, idx_out, ptr, n_in = op.tilesT, op.row_idsT, op.col_idsT, op.row_ptrT, op.Mb
+    else:
+        tiles, idx_in, idx_out, ptr, n_in = op.tiles, op.col_ids, op.row_ids, op.row_ptr, op.Nb
+    if op.route == "tiles":
+        tsplit = op.splitT if transposed else op.split
+    else:
+        tsplit = kernels.tile_split(ptr, dev)
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
+    csr = (put(M.indptr, torch.int32), put(M.indices, torch.int32), put(M.data, dtype))
+    if op.route == "csr":
+        own = op.csrT if transposed else op.csr
+        if not all(torch.equal(a, b) for a, b in zip(own[:3], csr)):
+            raise AssertionError("BSRMat's compressed rows differ from scipy's")
+        csplit = own[3]
+    else:
+        csplit = kernels.csr_split(csr[0], dev)
+    n_out = ptr.numel() - 1
+    return M, (tiles, idx_in, idx_out, n_in, n_out, tsplit), csr + (csplit,)
+
+
+def _spmv_case(kernels, route, args, v, M, dtype, dev):
+    """One kernel call twice and its plain version on the card: (got,
+    again, ref) as flat vectors of M's row count."""
+    if route == "tiles":
+        tiles, idx_in, idx_out, n_in, n_out, split = args
+        vb = torch.zeros(n_in * tiles.shape[2], dtype=dtype, device=dev)
+        vb[:v.numel()] = v
+        vb = vb.reshape(n_in, -1)
+        run = lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, split=split)
+        plain = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out)
+        got, again = run(), run()
+        pad = got.reshape(-1)[M.shape[0]:]
+        if pad.numel() and float(pad.abs().max()) != 0.0:
+            raise AssertionError("bsr_matvec: padding rows are not zero")
+        flat = lambda t: t.reshape(-1)[:M.shape[0]]
+        return flat(got), flat(again), flat(plain)
+    indptr, indices, values, split = args
+    run = lambda: kernels.csr_matvec(indptr, indices, values, v, split)
+    return run(), run(), kernels.csr_matvec_plain(indptr, indices, values, v, split)
 
 
 def phase_check_bsr(kernels, dev):
-    """bsr_matvec (float32, float64; forward, transposed, backward) and the
-    float64 bdot against their plain versions and scipy on the card; returns
-    the bsr_matvec measurements at the LP path's shapes."""
+    """Both routes of the LP operator, bsr_matvec (dense tiles) and
+    csr_matvec (compressed rows), in float32 and float64, forward,
+    transposed and backward, and the float64 bdot, against their plain
+    versions and scipy on the card; returns both kernels' measurements at
+    the LP path's shapes and at a block-dense operator's."""
     import scipy.sparse as sp
 
     from dprox_tpu_torch.algo.lp import BSRMat
@@ -759,77 +841,84 @@ def phase_check_bsr(kernels, dev):
     with_empty_rows[0:40, 0:290] = rng.rand(40, 290)
     with_empty_rows[520:640, 130:300] = rng.rand(120, 170)  # row blocks 1..3 stay empty
     random = lambda m, n: sp.random(m, n, density=0.05, random_state=rng, format="csr")
-    A_lp, A_big = equilibrated_cep(512, 16), equilibrated_cep(2048, 16)
+    A_lp, A_big, A_arrow = equilibrated_cep(512, 16), equilibrated_cep(2048, 16), arrow(64, 128)
     matrices = [("cep(512,16)", A_lp, 128, 128), ("cep(2048,16)", A_big, 128, 128),
+                ("arrow 64x128", A_arrow, 128, 128),
                 ("random 70x33", random(70, 33), 128, 128),
                 ("random 256x300", random(256, 300), 128, 128),
                 ("random 13x513", random(13, 513), 128, 128),
                 ("empty output block rows 640x300", with_empty_rows.tocsr(), 128, 128),
                 ("random 150x90, bm=32 bn=16", random(150, 90), 32, 16),
-                ("random 90x150, bm=48 bn=200", random(90, 150), 48, 200)]
-    cases, timed = [], {}
+                ("random 90x150, bm=48 bn=200", random(90, 150), 48, 200),
+                ("long rows 6000x5000", long_rows(rng), 128, 128)]
+    cases, routes, timed = [], {}, {}
     for name, A, bm, bn in matrices:
         for dtype in (torch.float32, torch.float64):
             op = BSRMat(A, bm=bm, bn=bn, dtype=dtype, device=dev)
-            for direction, tiles, idx_in, idx_out, ptr, n_in, n_out, M in _directions(op, A):
-                v = rng.rand(M.shape[1])
-                vb = torch.zeros(n_in * tiles.shape[2], dtype=dtype, device=dev)
-                vb[:v.shape[0]] = torch.from_numpy(v).to(device=dev, dtype=dtype)
-                vb = vb.reshape(n_in, -1)
-                got = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
-                again = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out)
-                ref = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out)
-                torch.cuda.synchronize()
-                exact = M @ v
-                flat = got.reshape(-1)[:M.shape[0]].double().cpu().numpy()
-                err = float((got - ref).abs().max())
-                rel = err / float(ref.abs().max())
-                rel_scipy = float(np.abs(flat - exact).max() / np.abs(exact).max())
-                cases.append({"matrix": name, "shape": list(A.shape), "tiles": op.n_tiles,
-                              "blocks": [bm, bn], "dtype": str(dtype).replace("torch.", ""),
-                              "direction": direction, "max_abs_err": err, "max_rel_err": rel,
-                              "max_rel_err_vs_scipy_float64": rel_scipy})
-                if not rel <= BSR_REL_TOL[dtype]:
-                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: relative diff "
-                                         f"{rel} > {BSR_REL_TOL[dtype]}")
-                if not rel_scipy <= BSR_SCIPY_REL_TOL[dtype]:
-                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: relative diff "
-                                         f"to scipy {rel_scipy} > {BSR_SCIPY_REL_TOL[dtype]}")
-                if not torch.equal(got, again):
-                    raise AssertionError(f"bsr_matvec {name} {dtype} {direction}: two calls "
-                                         "gave different bits")
-                if float(got.reshape(-1)[M.shape[0]:].abs().max() if got.numel() > M.shape[0]
-                         else 0.0) != 0.0:
-                    raise AssertionError(f"bsr_matvec {name}: padding rows are not zero")
-                if name.startswith("cep") and dtype == torch.float32:
-                    timed[(name, dtype, direction)] = (op, tiles, idx_in, idx_out, ptr, vb, n_out,
-                                                       M, err)
+            routes[name] = op.route
+            for direction in ("forward", "transposed"):
+                M, tile_args, csr_args = _routes(kernels, op, A, direction == "transposed",
+                                                 dtype, dev)
+                v = torch.from_numpy(rng.rand(M.shape[1])).to(device=dev, dtype=dtype)
+                exact = M @ v.double().cpu().numpy()
+                variants = [("tiles", tile_args), ("csr", csr_args)]
+                if name.startswith(("cep(512", "long rows")):  # rows cut much finer
+                    variants.append(("csr", csr_args[:3] + (kernels.csr_split(
+                        csr_args[0], dev, chunk=8, short=4),)))
+                for route, args in variants:
+                    got, again, ref = _spmv_case(kernels, route, args, v, M, dtype, dev)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    rel = err / max(float(ref.abs().max()), 1e-300)
+                    rel_scipy = float(np.abs(got.double().cpu().numpy() - exact).max()
+                                      / max(np.abs(exact).max(), 1e-300))
+                    split = args[-1]
+                    case = {"matrix": name, "shape": list(A.shape), "tiles": op.n_tiles,
+                            "nnz": int(M.nnz), "blocks": [bm, bn],
+                            "dtype": str(dtype).replace("torch.", ""), "direction": direction,
+                            "route": route, "split": [split.short, split.chunk],
+                            "cut_segments": split.n_split, "max_abs_err": err,
+                            "max_rel_err": rel, "max_rel_err_vs_scipy_float64": rel_scipy}
+                    cases.append(case)
+                    what = f"{route} {name} {case['dtype']} {direction} split {case['split']}"
+                    if not rel <= SPMV_REL_TOL[dtype]:
+                        raise AssertionError(f"{what}: relative diff {rel} > {SPMV_REL_TOL[dtype]}")
+                    if not rel_scipy <= SPMV_SCIPY_REL_TOL[dtype]:
+                        raise AssertionError(f"{what}: relative diff to scipy {rel_scipy} > "
+                                             f"{SPMV_SCIPY_REL_TOL[dtype]}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{what}: two calls gave different bits")
+                if dtype == torch.float32 and name.startswith(("cep", "arrow")):
+                    timed[(name, direction)] = (op, M, tile_args, csr_args, v)
             if name.startswith("empty") and float((op @ torch.ones(300, dtype=dtype, device=dev))
                                                   [128:512].abs().max()) != 0.0:
-                raise AssertionError("bsr_matvec: an output block without tiles is not zero")
+                raise AssertionError("an output block without tiles is not zero")
 
-    # the backward on the card: grad of sum((A x)^2) = 2 A^T A x, and of A^T
+    # the backward on the card: grad of sum((A x)^2) = 2 A^T A x, and of A^T,
+    # in exactly two launches of the route's kernel
     backward = []
-    for name, A, dtype, tol in [("cep(512,16)", A_lp, torch.float32, 1e-4),
-                                ("cep(512,16)", A_lp, torch.float64, 1e-10),
-                                ("random 40x30, bm=bn=16",
-                                 sp.random(40, 30, density=0.2, random_state=rng, format="csr"),
-                                 torch.float64, 1e-10)]:
-        op = BSRMat(A, bm=16 if A.shape[0] == 40 else 128, bn=16 if A.shape[0] == 40 else 128,
-                    dtype=dtype, device=dev)
+    for name, A, dtype, tol, b in [("cep(512,16)", A_lp, torch.float32, 1e-4, 128),
+                                   ("cep(512,16)", A_lp, torch.float64, 1e-10, 128),
+                                   ("random 40x30, bm=bn=16",
+                                    sp.random(40, 30, density=0.2, random_state=rng,
+                                              format="csr"), torch.float64, 1e-10, 16),
+                                   ("arrow 8x16, bm=bn=16", arrow(8, 16, seed=3),
+                                    torch.float64, 1e-10, 16)]:
+        op = BSRMat(A, bm=b, bn=b, dtype=dtype, device=dev)
+        counter = kernels.csr_matvec if op.route == "csr" else kernels.bsr_matvec
         for M, apply in ((A, lambda t: op @ t), (A.T.tocsr(), lambda t: op.T @ t)):
             x0 = rng.rand(M.shape[1])
             x = torch.from_numpy(x0).to(device=dev, dtype=dtype).requires_grad_()
-            before = kernels.bsr_matvec.launches
+            before = counter.launches
             g, = torch.autograd.grad(torch.sum(apply(x) ** 2), x)
-            launched = kernels.bsr_matvec.launches - before
+            launched = counter.launches - before
             exact = 2 * (M.T @ (M @ x0))
             rel = float(np.abs(g.double().cpu().numpy() - exact).max() / np.abs(exact).max())
             backward.append({"matrix": name, "dtype": str(dtype).replace("torch.", ""),
-                             "operator": "A" if M is A else "A^T", "max_rel_err": rel,
-                             "launches": launched})
+                             "route": op.route, "operator": "A" if M is A else "A^T",
+                             "max_rel_err": rel, "launches": launched})
             if not rel <= tol or launched != 2:
-                raise AssertionError(f"bsr_matvec backward {name} {dtype}: relative diff {rel} "
+                raise AssertionError(f"{op.route} backward {name} {dtype}: relative diff {rel} "
                                      f"> {tol} or {launched} launches != 2")
 
     bdot64 = []
@@ -850,46 +939,101 @@ def phase_check_bsr(kernels, dev):
     if not (torch.equal(ga, q.detach()) and torch.equal(gq, a.detach())):
         raise AssertionError("bdot on the card: wrong gradient")
 
-    # timings, float32, both operators and directions; the library call is
-    # torch.sparse's CSR product of the same matrix with the same vector
+    # timings, float32, both routes and directions of the two LP operators
+    # and the arrow operator; the library call is torch.sparse's CSR product
+    # of the same matrix with the same vector; each bound counts the route's
+    # own bytes (every array read once, y written once)
     rows = []
-    for (name, dtype, direction), (op, tiles, idx_in, idx_out, ptr, vb, n_out, M, err) in timed.items():
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(M.indptr.astype(np.int32)), torch.from_numpy(M.indices.astype(np.int32)),
-            torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
-            check_invariants=True).to(dev)
-        v = vb.reshape(-1)[:M.shape[1]].contiguous()
-        item, T, (bm_, bn_) = 4, tiles.shape[0], tiles.shape[1:]
-        dense_bytes = T * bm_ * bn_ * item + vb.numel() * item + n_out * bm_ * item \
-            + (T + n_out + 1) * 4
+    for (name, direction), (op, M, tile_args, csr_args, v) in timed.items():
+        lib = torch.sparse_csr_tensor(*csr_args[:3], size=M.shape).to(dev)
+        tiles, idx_in, idx_out, n_in, n_out, tsplit = tile_args
+        vb = torch.zeros(n_in * tiles.shape[2], device=dev)
+        vb[:v.numel()] = v
+        vb = vb.reshape(n_in, -1)
+        indptr, indices, values, csplit = csr_args
+        T, bm_, bn_ = tiles.shape
+        item = 4
+        tile_bytes = T * bm_ * bn_ * item + vb.numel() * item + n_out * bm_ * item + 4 * (
+            T + 3 * tsplit.owner.numel())
         csr_bytes = M.nnz * (item + 4) + (M.shape[0] + 1) * 4 + sum(M.shape) * item
-        b_dense = bound(dense_bytes, 2 * T * bm_ * bn_)
-        launch = lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
-        rows.append({"matrix": name, "shape": list(M.shape), "nnz": int(M.nnz), "tiles": T,
-                     "direction": direction, "max_abs_err": err,
-                     "ms": time_ms(launch), "eager_ms": time_ms(launch, graph=False),
-                     "plain_ms": time_ms(lambda: kernels.bsr_matvec_plain(tiles, idx_in, idx_out,
-                                                                          vb, n_out)),
-                     "library_ms": time_ms(lambda: csr @ v),
-                     "bound_ms": b_dense[0], "bound_by": b_dense[1],
-                     "dense_tile_bytes": dense_bytes,
-                     "csr_bound_ms": bound(csr_bytes, 2 * M.nnz)[0], "csr_bytes": csr_bytes})
-    main_row = next(r for r in rows if r["matrix"] == "cep(512,16)" and r["direction"] == "forward")
+        apply = (lambda: op.T @ v) if direction == "transposed" else (lambda: op @ v)
+        library_ms = time_ms(lambda: lib @ v)
+        for route, launch, plain, nbytes, ops in [
+                ("tiles", lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out,
+                                                     split=tsplit),
+                 lambda: kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out),
+                 tile_bytes, 2 * T * bm_ * bn_),
+                ("csr", lambda: kernels.csr_matvec(indptr, indices, values, v, csplit),
+                 lambda: kernels.csr_matvec_plain(indptr, indices, values, v, csplit),
+                 csr_bytes, 2 * M.nnz)]:
+            b_route = bound(nbytes, ops)
+            err = next(c["max_abs_err"] for c in cases
+                       if (c["matrix"], c["direction"], c["route"], c["dtype"])
+                       == (name, direction, route, "float32"))
+            rows.append({"matrix": name, "shape": list(M.shape), "nnz": int(M.nnz),
+                         "tiles": T, "direction": direction, "route": route,
+                         "operator_route": op.route, "cut_segments": (tsplit if route == "tiles"
+                                                                      else csplit).n_split,
+                         "max_abs_err": err, "ms": time_ms(launch),
+                         "eager_ms": time_ms(launch, graph=False),
+                         "plain_ms": time_ms(plain), "library_ms": library_ms,
+                         "bound_ms": b_route[0], "bound_by": b_route[1], "bytes": nbytes})
+        rows[-1]["operator_eager_ms"] = time_ms(apply, graph=False)
+    # the tile route's piece length on the arrow operator: graph-replay ms of
+    # each direction with the lists cut into pieces of at most K tiles
+    sweep = {}
+    for K in (1, 2, 4, 8, 16, 64):
+        sweep[K] = {}
+        for direction in ("forward", "transposed"):
+            _, _, (tiles, idx_in, idx_out, n_in, n_out, _), _, v = timed[("arrow 64x128",
+                                                                          direction)]
+            vb = torch.zeros(n_in * tiles.shape[2], device=dev)
+            vb[:v.numel()] = v
+            vb = vb.reshape(n_in, -1)
+            split = kernels.tile_split(kernels.bsr_row_ptr(idx_out, n_out), dev, chunk=K)
+            sweep[K][direction] = time_ms(lambda: kernels.bsr_matvec(
+                tiles, idx_in, idx_out, vb, n_out, split=split))
+    pick = lambda name, direction, route: next(
+        r for r in rows if (r["matrix"], r["direction"], r["route"]) == (name, direction, route))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bsr = {"name": "bsr_matvec", "route": "cuda",
            "source": "dprox_tpu_torch/csrc/bsr_matvec.cu",
            "replaces": "dprox_tpu/ops/pallas_kernels.py:173",
-           **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")},
+           **{k: pick("arrow 64x128", "forward", "tiles")[k] for k in keys},
+           "shape": "arrow 64x128 forward (the tile route's operator)",
            "library": "torch.sparse CSR A @ x (float32) of the same matrix",
-           "at_shapes": rows}
-    emit({"phase": "check_bsr", "cases": cases, "backward_cases": backward,
+           "at_shapes": [r for r in rows if r["route"] == "tiles"]}
+    csr = {"name": "csr_matvec", "route": "cuda",
+           "source": "dprox_tpu_torch/csrc/csr_matvec.cu",
+           "replaces": "dprox_tpu/ops/pallas_kernels.py:173",
+           **{k: pick("cep(512,16)", "forward", "csr")[k] for k in keys},
+           "shape": "cep(512,16) forward (the LP path's operator)",
+           "library": "torch.sparse CSR A @ x (float32) of the same matrix",
+           "at_shapes": [r for r in rows if r["route"] == "csr"]}
+    # graph-replay ms of the transposed apply over the forward one, and of
+    # the compressed kernel over the library call, on each operator's route
+    ratios = {name: {"route": routes[name],
+                     "transposed_over_forward": pick(name, "transposed", routes[name])["ms"]
+                     / pick(name, "forward", routes[name])["ms"],
+                     "csr_over_library": {d: pick(name, d, "csr")["ms"]
+                                          / pick(name, d, "csr")["library_ms"]
+                                          for d in ("forward", "transposed")}}
+              for name in ("cep(512,16)", "cep(2048,16)", "arrow 64x128")}
+    emit({"phase": "check_bsr", "routes": routes, "ratios": ratios,
+          "tile_segment_sweep_arrow_ms": sweep, "cases": cases,
+          "backward_cases": backward,
           "bdot_float64_cases": bdot64,
-          "tolerance": {"float32": BSR_REL_TOL[torch.float32], "float64": BSR_REL_TOL[torch.float64],
+          "tolerance": {"float32": SPMV_REL_TOL[torch.float32],
+                        "float64": SPMV_REL_TOL[torch.float64],
                         "of": "max |kernel - plain| / max |plain|"},
-          "timing": "CUDA-graph replay, median of 30 x 10 calls, float32; the 2048-period "
-                    "operator's 85 MB of tiles per direction exceed the 50 MB L2",
-          "measured": [bsr]})
-    return [bsr]
+          "split_defaults": {"csr_short_row": kernels.CSR_SHORT_ROW,
+                             "csr_chunk": kernels.CSR_CHUNK,
+                             "tile_segment": kernels.TILE_SEGMENT},
+          "timing": "CUDA-graph replay (ms) and eager calls (eager_ms), median of 30 x 10 "
+                    "calls, float32; the 2048-period operator's 85 MB of tiles per direction "
+                    "exceed the 50 MB L2",
+          "measured": [bsr, csr]})
+    return [bsr, csr]
 
 
 def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
@@ -897,7 +1041,8 @@ def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
     x = x.detach().double().cpu().numpy()
     out = {"objective": float(c @ x), "highs_objective": float(highs_fun),
            "objective_gap": float((c @ x - highs_fun) / abs(highs_fun)),
-           "x_min": float(x.min()), "eq_gap": float(np.abs(A_eq @ x - b_eq).max()),
+           "x_min": float(x.min()),
+           "eq_gap": float(np.abs(A_eq @ x - b_eq).max()) if A_eq is not None else 0.0,
            "ub_gap": float((A_ub @ x - b_ub).max())}
     if res is not None:
         out.update(iterations=res["iters"], r_norm=res["r_norm"], eps_primal=res["eps_primal"],
@@ -934,8 +1079,10 @@ def phase_lp(kernels, dev, card):
     highs_fun = _highs(*data)
     highs_s = time.perf_counter() - t0
     p = lp.LPProblem(*data, dtype=torch.float32)
-    if p.device.type != "cuda" or not isinstance(p.A, lp.BSRMat):
-        raise AssertionError(f"LPProblem on {p.device} with operator {type(p.A).__name__}")
+    if (p.device.type != "cuda" or not isinstance(p.A, lp.BSRMat) or p.A.route != "csr"
+            or p.AT.base is not p.A):
+        raise AssertionError(f"LPProblem on {p.device} with operator {type(p.A).__name__} "
+                             f"on route {getattr(p.A, 'route', None)}")
     solver = lp.LPSolverADMM(dtype=torch.float32, verbose=False)
 
     # the main path: one solve with the counts read around it, then the same
@@ -957,10 +1104,10 @@ def phase_lp(kernels, dev, card):
     # per ADMM iteration: A^T once for the right-hand side, A and A^T in the
     # PCG's set-up and in each of its iterations, A once after it; bdot once in
     # the set-up and twice per PCG iteration; A and A^T once per chunk's
-    # residual evaluation
+    # residual evaluation. Both directions take the compressed route.
     inner, odd = divmod(launches["bdot"] - iters, 2)
     expected = dict.fromkeys(launches, 0) | {
-        "bdot": launches["bdot"], "bsr_matvec": 4 * iters + 2 * inner + 2 * chunks}
+        "bdot": launches["bdot"], "csr_matvec": 4 * iters + 2 * inner + 2 * chunks}
 
     # one ADMM iteration's stages at the middle of the solve: replay the
     # first half (the solve is deterministic) and keep that iteration's inputs
@@ -1000,10 +1147,10 @@ def phase_lp(kernels, dev, card):
         stages = {
             "iteration_with_host_reads": _best_ms(one_iter),
             "pcg_iterations_in_it": inner_here,
-            "bsr_matvec_A": time_ms(lambda: p.A @ xs, 20, 5, graph=False),
-            "bsr_matvec_A_device": time_ms(lambda: p.A @ xs, 20, 5),
-            "bsr_matvec_AT": time_ms(lambda: p.AT @ zs, 20, 5, graph=False),
-            "bsr_matvec_AT_device": time_ms(lambda: p.AT @ zs, 20, 5),
+            "matvec_A": time_ms(lambda: p.A @ xs, 20, 5, graph=False),
+            "matvec_A_device": time_ms(lambda: p.A @ xs, 20, 5),
+            "matvec_AT": time_ms(lambda: p.AT @ zs, 20, 5, graph=False),
+            "matvec_AT_device": time_ms(lambda: p.AT @ zs, 20, 5),
             "bdot": time_ms(lambda: solvers.bdot(r, z), 20, 5, graph=False),
             "bdot_device": time_ms(lambda: solvers.bdot(r, z), 20, 5),
             "pcg_elementwise": time_ms(pcg_elementwise, 20, 5, graph=False),
@@ -1072,12 +1219,14 @@ def phase_lp(kernels, dev, card):
     big = {"shape": list(pb.A.shape), "tiles": pb.A.n_tiles, "iterations": 200, "seconds": big_s,
            "s_per_iteration": big_s / 200,
            "pcg_iterations": (big_launches["bdot"] - 200) // 2,
+           "route": pb.A.route, "csr_matvec_launches": big_launches["csr_matvec"],
            "bsr_matvec_launches": big_launches["bsr_matvec"],
            "finite": bool(torch.isfinite(xb).all())}
 
     emit({"phase": "lp", "config": "synthetic_cep_model(512, 16), float32, "
           "LPSolverADMM().solve_fused(p, max_iters=20000)",
-          "A_shape": list(p.A.shape), "nnz": int(p.A.nse), "tiles": p.A.n_tiles,
+          "A_shape": list(p.A.shape), "nnz": int(p.A.nnz), "tiles": p.A.n_tiles,
+          "route": p.A.route,
           **out, "jax_cpu_iterations": JAX_CPU_LP_ITERS,
           "jax_cpu": {"objective": JAX_CPU_LP_OBJECTIVE, "x_min": JAX_CPU_LP_X_MIN,
                       "eq_gap": JAX_CPU_LP_EQ_GAP, "ub_gap": JAX_CPU_LP_UB_GAP},
@@ -1107,12 +1256,83 @@ def phase_lp(kernels, dev, card):
         raise AssertionError(f"lp pretraining: non-finite loss in {[e['loss'] for e in log]}")
     if not all(np.isfinite(g) and g != 0.0 for g in log[0]["grad"].values()):
         raise AssertionError(f"lp pretraining: zero or non-finite gradient {log[0]['grad']}")
-    if pretrain_launches["bsr_matvec"] <= 0 or pretrain_launches["bdot"] <= 0:
+    if pretrain_launches["csr_matvec"] <= 0 or pretrain_launches["bdot"] <= 0:
         raise AssertionError(f"lp pretraining launched no kernel: {pretrain_launches}")
     if not abs(ad - fd) <= 1e-4 * abs(fd):
         raise AssertionError(f"d loss / d rho: autograd {ad} vs central difference {fd}")
-    if not big["finite"]:
-        raise AssertionError("chunked solve at 2048 periods: non-finite values")
+    if not big["finite"] or big["route"] != "csr" or big["bsr_matvec_launches"]:
+        raise AssertionError(f"chunked solve at 2048 periods: non-finite values or "
+                             f"route {big['route']}")
+    return launches
+
+
+def planted_block_lp(n_blocks, b=128, seed=1):
+    """(c, A_ub, b_ub, optimum) of min c x over A_ub x <= b_ub, x >= 0 with
+    A_ub = arrow(n_blocks, b): dense blocks and a dense first block column,
+    the shape of a first-stage block linked to every later stage. The
+    optimum is planted as LP test generators do: a primal x* with half its
+    entries zero, a dual y* >= 0 with half its rows inactive, slack on the
+    inactive rows only, and c = s - A_ub^T y* with reduced costs s > 0 only
+    where x* = 0; strict complementarity makes x* the unique solution."""
+    A = arrow(n_blocks, b, seed)
+    m, n = A.shape
+    rng = np.random.RandomState(seed)
+    basic, active = rng.rand(n) < 0.5, rng.rand(m) < 0.5
+    x = np.where(basic, 0.5 + rng.rand(n), 0.0)
+    y = np.where(active, 0.5 + rng.rand(m), 0.0)
+    b_ub = A @ x + np.where(active, 0.0, 0.5 + rng.rand(m))
+    c = np.where(basic, 0.0, 0.5 + rng.rand(n)) - A.T @ y
+    return c, A, b_ub, float(c @ x)
+
+
+def phase_lp_tiles(kernels, dev, card):
+    """The planted block-angular LP at 4 blocks of 128 (512 variables,
+    [A_ub; I] 1024 x 512 in 11 tiles of 128 x 128). In float32 its dense
+    tiles move fewer bytes than compressed rows, so the solve runs
+    bsr_matvec, whose transposed apply cuts block column 0's 5 tiles into
+    pieces. (At 8 blocks the float32 solve's stop is a slow draw that can
+    run past max_iters.) Gates as in
+    phase lp: converged, the launch count the iteration counts imply, each
+    feasibility gap within the solve's r_norm, the objective within
+    LP_OBJECTIVE_TOL of HiGHS (solved here; the planted optimum is printed)."""
+    from dprox_tpu_torch.algo import lp
+
+    c, A, b, planted = planted_block_lp(4)
+    highs_fun = _highs(c, A, b, None, None)
+    p = lp.LPProblem(c, A, b, None, None, dtype=torch.float32)
+    if p.A.route != "tiles" or p.A.splitT.n_split != 1:
+        raise AssertionError(f"lp_tiles: route {p.A.route}, expected tiles with one cut list")
+    solver = lp.LPSolverADMM(dtype=torch.float32, verbose=False)
+    solver.solve_fused(p, max_iters=25)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x, res = solver.solve_fused(p, max_iters=20000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    iters = res["iters"]
+    inner, odd = divmod(launches["bdot"] - iters, 2)
+    expected = dict.fromkeys(launches, 0) | {
+        "bdot": launches["bdot"], "bsr_matvec": 4 * iters + 2 * inner + 2 * -(-iters // 25)}
+    try:  # print the line before a gate fails
+        out, failed = _lp_gates("lp_tiles", c, A, b, None, None, x, highs_fun, res), None
+    except AssertionError as e:
+        out, failed = {"failed": str(e)}, e
+    emit({"phase": "lp_tiles", "config": "planted_block_lp(4): arrow(4, 128), float32, "
+          "LPSolverADMM().solve_fused(p, max_iters=20000)",
+          "A_shape": list(p.A.shape), "tiles": p.A.n_tiles, "nnz": p.A.nnz,
+          "route": p.A.route, "transposed_pieces": p.A.splitT.owner.numel(),
+          "planted_objective": planted, "seconds": seconds, "s_per_iteration": seconds / iters,
+          "pcg_iterations": inner, "pcg_iterations_per_iteration": inner / iters,
+          "launches": launches, "card": card, **out})
+    if failed:
+        raise failed
+    if launches != expected or odd or inner <= 0:
+        raise AssertionError(f"lp_tiles: launch counts {launches} != {expected} "
+                             f"(iterations {iters}, PCG iterations {inner})")
+    if not (bool(torch.isfinite(x).all()) and tuple(x.shape) == (c.shape[0],)):
+        raise AssertionError(f"lp_tiles: bad output shape {tuple(x.shape)} or non-finite")
     return launches
 
 
@@ -1128,16 +1348,20 @@ def phase_lp_consensus(kernels, dev, card):
     ref = linprog(cf, Auf, buf, Aef, bef, bounds=(0, None), method="highs")
     if not ref.success:
         raise AssertionError(f"HiGHS failed on the extensive form: {ref.message}")
-    kw = dict(eval_freq=50, tol=1e-3, rho_ph=1.0, verbose=False, fused=True,
+    kw = dict(max_outer=300, eval_freq=50, tol=1e-3, rho_ph=1.0, verbose=False, fused=True,
               dtype=torch.float32)
-    solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, max_outer=50, **kw)  # warm-up
+    # the same solve twice: the first warms up, the second is timed, and the
+    # two must agree bit for bit (the scenario applies sum in a fixed order)
+    z1, xs1, _, res1 = solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, **kw)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    z, xs, _, res = solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, max_outer=300, **kw)
+    z, xs, _, res = solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    same = (np.array_equal(z, z1) and np.array_equal(xs, xs1)
+            and res["objective"] == res1["objective"])
     gap = (res["objective"] - ref.fun) / abs(ref.fun)
     emit({"phase": "lp_consensus", "config": "synthetic_cep_scenarios(64, 8, 8), float32, "
           "solve_consensus_lp(max_outer=300, eval_freq=50, tol=1e-3, rho_ph=1.0, fused=True)",
@@ -1145,11 +1369,13 @@ def phase_lp_consensus(kernels, dev, card):
           "objective_gap": gap, "outer_iterations": res["outer_iters"],
           "r_nonanticipativity": res["r_nonanticipativity"], "r_primal": res["r_primal"],
           "rho_ph_final": res["rho_ph_final"], "warm_s": seconds,
+          "second_solve_equals_first": same,
           "s_per_outer_iteration": seconds / res["outer_iters"], "launches": launches,
           "pcg_iterations": (launches["bdot"] - 10 * res["outer_iters"]) // 2,
           "kernels_on_this_path": "bdot only: the scenario-batched applies A @ X are "
-                                  "torch.bmm + index_add over the tiles, as the JAX package "
-                                  "leaves them to dot_general outside any Pallas kernel",
+                                  "torch.bmm over the tiles and a segment sum in tile order, "
+                                  "as the JAX package leaves them to dot_general and "
+                                  "segment_sum outside any Pallas kernel",
           "card": card})
     expected = dict.fromkeys(launches, 0) | {"bdot": launches["bdot"]}
     if launches != expected or launches["bdot"] <= 0:
@@ -1158,6 +1384,8 @@ def phase_lp_consensus(kernels, dev, card):
         raise AssertionError("lp_consensus: bad output shape or non-finite values")
     if not abs(gap) <= CONSENSUS_OBJECTIVE_TOL:
         raise AssertionError(f"lp_consensus: objective gap {gap} > {CONSENSUS_OBJECTIVE_TOL}")
+    if not same:
+        raise AssertionError("lp_consensus: two solves of one problem differ")
 
 
 def main() -> int:
@@ -1186,11 +1414,13 @@ def main() -> int:
     joint = phase_joint(dp, kernels, dev, card)
     by_path.update(joint_cg_pallas=joint["cg_pallas"], joint_default_pcg=joint["default_pcg"])
     by_path["lp"] = phase_lp(kernels, dev, card)
+    by_path["lp_tiles"] = phase_lp_tiles(kernels, dev, card)
     phase_lp_consensus(kernels, dev, card)
     # each kernel's count on the main-path solve that is its own
     own = {"tv_denoise_chw": "flagship", "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
-           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": "lp"}
+           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": "lp_tiles",
+           "csr_matvec": "lp"}
     for k in measured:
         k["launches"] = by_path[own[k["name"]]][k["name"]]
         k["launches_counted_on"] = own[k["name"]]

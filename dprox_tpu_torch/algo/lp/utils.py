@@ -3,9 +3,9 @@
 Counterpart of dprox_tpu/algo/lp/utils.py. Equilibration runs on the
 host on scipy sparse matrices (one-time preprocessing); the equilibrated
 matrix becomes a pair of device operators (A, A^T) whose matvecs run
-inside the ADMM loop: ``BSRMat`` (dense non-zero tiles through the
-``bsr_matvec`` kernel) when the tiles fit a byte budget, else
-``torch.sparse`` tensors.
+inside the ADMM loop: ``BSRMat`` (the ``csr_matvec`` or the
+``bsr_matvec`` kernel, whichever moves fewer bytes) when the tiles fit a
+byte budget, else ``torch.sparse`` tensors.
 """
 from __future__ import annotations
 
@@ -62,6 +62,17 @@ def _row_ptr(sorted_ids: np.ndarray, n_blocks: int) -> np.ndarray:
     return np.searchsorted(sorted_ids, np.arange(n_blocks + 1)).astype(np.int32)
 
 
+def _compressed_rows(tiles, out_ids, in_ids, b_out: int, b_in: int, n_rows: int):
+    """(indptr, indices, values) of the matrix whose (b_out x b_in) tile t
+    sits at block (out_ids[t], in_ids[t]); explicit zeros are dropped."""
+    t, i, j = np.nonzero(tiles)
+    rows = np.asarray(out_ids, np.int64)[t] * b_out + i
+    cols = np.asarray(in_ids, np.int64)[t] * b_in + j
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n_rows))])
+    return indptr, cols[order], tiles[t, i, j][order]
+
+
 class BSRMat:
     """Static block-sparse device operator.
 
@@ -74,13 +85,23 @@ class BSRMat:
     Tiles are kept twice, once in row-major tile order (forward) and once in
     column-major order, pre-transposed (transpose apply), so both directions
     see sorted output-block ids; ``row_ptr`` / ``row_ptrT`` are the offsets of
-    each output block's tiles, which the kernel walks. The six arrays
+    each output block's tiles. The six arrays
     ``tiles, row_ids, col_ids, tilesT, row_idsT, col_idsT`` equal those of
-    the JAX package's ``BSRMat`` for the same matrix.
+    the JAX package's ``BSRMat`` for the same matrix; ``matmat`` /
+    ``rmatmat`` use them.
+
+    ``route`` says how ``op @ x`` and ``op.T @ y`` run. It is chosen once,
+    from the layout and not the device, by the bytes the two directions'
+    arrays hold: ``"csr"`` when the ``nnz`` non-zeros as compressed rows
+    (derived from the tiles for A and for A^T: ``csr``, ``csrT``) weigh
+    less than the dense tiles, as for the sparse energy-planning LPs, and
+    ``"tiles"`` otherwise, for block-dense operators (``split`` /
+    ``splitT`` cut their long tile lists). On CPU tensors the route's plain
+    version runs.
 
     ``op @ x`` and ``op.T @ y`` are differentiable in the vector; the
-    backward of one direction is the kernel on the other. The tiles are data
-    and get no gradient.
+    backward of one direction is the other direction's apply on the same
+    route. The matrix is data and gets no gradient.
     """
 
     def __init__(self, A: sp.spmatrix, bm: int = 128, bn: int = 128,
@@ -118,8 +139,25 @@ class BSRMat:
         self.tilesT = put(tilesT, dtype)
         self.row_idsT = put(row_idsT, torch.int32)
         self.col_idsT = put(col_idsT, torch.int32)
-        self.row_ptr = put(_row_ptr(np.asarray(row_ids), self.Mb), torch.int32)
-        self.row_ptrT = put(_row_ptr(np.asarray(col_idsT), self.Nb), torch.int32)
+        row_ptr = _row_ptr(np.asarray(row_ids), self.Mb)
+        row_ptrT = _row_ptr(np.asarray(col_idsT), self.Nb)
+        self.row_ptr = put(row_ptr, torch.int32)
+        self.row_ptrT = put(row_ptrT, torch.int32)
+        indptr, indices, values = _compressed_rows(tiles, row_ids, col_ids, bm, bn, m)
+        self.nnz = values.size
+        item = self.tiles.element_size()
+        tile_bytes = 2 * self.n_tiles * bm * bn * item
+        csr_bytes = 2 * self.nnz * (item + 4) + (m + n + 2) * 4
+        self.route = "csr" if csr_bytes < tile_bytes else "tiles"
+        if self.route == "csr":
+            indptrT, indicesT, valuesT = _compressed_rows(tilesT, col_idsT, row_idsT, bn, bm, n)
+            self.csr = (put(indptr, torch.int32), put(indices, torch.int32),
+                        put(values, dtype), kernels.csr_split(indptr, dev))
+            self.csrT = (put(indptrT, torch.int32), put(indicesT, torch.int32),
+                         put(valuesT, dtype), kernels.csr_split(indptrT, dev))
+        else:
+            self.split = kernels.tile_split(row_ptr, dev)
+            self.splitT = kernels.tile_split(row_ptrT, dev)
 
     @property
     def dtype(self):
@@ -134,17 +172,20 @@ class BSRMat:
         return 2 * self.n_tiles * self.bm * self.bn * self.tiles.element_size()
 
     def _apply(self, v, transposed: bool):
-        """One kernel launch: A @ v, or A^T @ v on the pre-transposed tiles."""
+        """A @ v, or A^T @ v, through the route's kernel."""
+        if self.route == "csr":
+            indptr, indices, values, split = self.csrT if transposed else self.csr
+            return kernels.csr_matvec(indptr, indices, values, v.contiguous(), split)
         m, n = self.shape
         if transposed:
-            tiles, idx_in, idx_out, ptr = self.tilesT, self.row_idsT, self.col_idsT, self.row_ptrT
+            tiles, idx_in, idx_out, split = self.tilesT, self.row_idsT, self.col_idsT, self.splitT
             n_in, b_in, n_out, length = self.Mb, self.bm, self.Nb, n
         else:
-            tiles, idx_in, idx_out, ptr = self.tiles, self.col_ids, self.row_ids, self.row_ptr
+            tiles, idx_in, idx_out, split = self.tiles, self.col_ids, self.row_ids, self.split
             n_in, b_in, n_out, length = self.Nb, self.bn, self.Mb, m
         pad = n_in * b_in - v.shape[0]
         vb = (F.pad(v, (0, pad)) if pad else v.contiguous()).reshape(n_in, b_in)
-        out = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
+        out = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, split=split)
         return out.reshape(-1)[:length]
 
     def _differentiable_apply(self, v, transposed: bool):
@@ -161,22 +202,24 @@ class BSRMat:
     def _blocks_product(self, V, transposed: bool):
         m, n = self.shape
         if transposed:
-            tiles, idx_in, idx_out = self.tilesT, self.row_idsT, self.col_idsT
-            n_in, b_in, n_out, length = self.Mb, self.bm, self.Nb, n
+            tiles, idx_in, ptr = self.tilesT, self.row_idsT, self.row_ptrT
+            n_in, b_in, length = self.Mb, self.bm, n
         else:
-            tiles, idx_in, idx_out = self.tiles, self.col_ids, self.row_ids
-            n_in, b_in, n_out, length = self.Nb, self.bn, self.Mb, m
+            tiles, idx_in, ptr = self.tiles, self.col_ids, self.row_ptr
+            n_in, b_in, length = self.Nb, self.bn, m
         S = V.shape[1]
         Vb = F.pad(V, (0, 0, 0, n_in * b_in - V.shape[0])).reshape(n_in, b_in, S)
         prod = torch.bmm(tiles, Vb[idx_in.long()])  # (T, b_out, S)
-        out = torch.zeros((n_out, tiles.shape[1], S), dtype=prod.dtype, device=prod.device)
-        out = out.index_add(0, idx_out.long(), prod)
+        # each output block's tile products added in tile order, on the card
+        # too (index_add adds them with atomics there, in any order)
+        out = torch.segment_reduce(prod, "sum", offsets=ptr, axis=0, unsafe=True)
         return out.reshape(-1, S)[:length]
 
     def matmat(self, X):
         """A @ X for X (n, S): one batched tile product (T, bm, bn) x
-        (T, bn, S) and a sum into the output blocks, in the tiles' dtype
-        (the multi-right-hand-side apply of the scenario-consensus path)."""
+        (T, bn, S) and a sum into the output blocks in tile order, in the
+        tiles' dtype, so two calls give the same bits (the
+        multi-right-hand-side apply of the scenario-consensus path)."""
         return self._blocks_product(X, False)
 
     def rmatmat(self, Y):

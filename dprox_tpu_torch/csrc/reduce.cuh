@@ -1,4 +1,6 @@
-// Deterministic per-batch-row reductions shared by bdot.cu and cg_tail.cu.
+// Deterministic per-batch-row reductions shared by bdot.cu and cg_tail.cu,
+// the block sum csr_matvec.cu takes, and the dependent launch of the sparse
+// kernels' second pass.
 //
 // A row of D elements is reduced in two fixed-order steps: `reduce_blocks(D)`
 // blocks each write one partial sum of their grid-stride share of the row to
@@ -85,6 +87,34 @@ __global__ void dot_partial_kernel(const T* __restrict__ a,
   }
   const T total = block_sum(acc, smem);
   if (threadIdx.x == 0) partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = total;
+}
+
+// A second pass that adds the first's partial sums, launched as a
+// programmatic dependent launch: the card may start it while the first
+// still runs; it calls wait_for_primary() before it reads a partial sum,
+// which waits for the first grid's completion and its writes. The first
+// calls allow_dependent_launch(). That hides most of the gap between two
+// dependent launches.
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, cudaStream_t s,
+                     Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.stream = s;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&config, kernel, args...);
 }
 
 }  // namespace dprox

@@ -12,8 +12,13 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
   deterministic;
 * ``fused_cg_tail`` (csrc/cg_tail.cu) <- ``fused_cg_tail``: one CG
   iteration minus the matvec (both reductions and the three axpys);
-* ``bsr_matvec`` (csrc/bsr_matvec.cu) <- ``bsr_matvec``: the block-sparse
-  matrix-vector product of the LP path, float32 and float64.
+* ``bsr_matvec`` (csrc/bsr_matvec.cu) and ``csr_matvec``
+  (csrc/csr_matvec.cu) <- ``bsr_matvec``: the sparse matrix-vector product
+  of the LP path, float32 and float64, over dense tiles or over compressed
+  rows, whichever moves fewer bytes for the operator
+  (``algo.lp.utils.BSRMat.route``). Both cut long segments (a long tile
+  list, a long row) into pieces, once, when the operator is built
+  (``tile_split``, ``csr_split``).
 
 The sources in ``csrc/`` are CUDA C++ for ``sm_90a`` with a plain C
 interface (``reduce.cuh`` is the header ``bdot.cu`` and ``cg_tail.cu``
@@ -34,7 +39,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.tv import tv_denoising_chw
@@ -43,7 +50,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"tv_denoise": "tv_denoise.cu", "freq_divide": "freq_divide.cu",
            "fused_admm_update": "fused_admm_update.cu", "bdot": "bdot.cu",
-           "cg_tail": "cg_tail.cu", "bsr_matvec": "bsr_matvec.cu"}
+           "cg_tail": "cg_tail.cu", "bsr_matvec": "bsr_matvec.cu",
+           "csr_matvec": "csr_matvec.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -70,7 +78,11 @@ _SIGNATURES = {
         "dprox_cg_tail_workspace": [_I, _LL],
     },
     "bsr_matvec": {
-        "dprox_bsr_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "dprox_bsr_matvec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "csr_matvec": {
+        "dprox_csr_matvec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
@@ -78,7 +90,8 @@ _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
                  "fused_admm_update": "dprox_fused_admm_update_error_string",
                  "bdot": "dprox_bdot_error_string",
                  "cg_tail": "dprox_cg_tail_error_string",
-                 "bsr_matvec": "dprox_bsr_matvec_error_string"}
+                 "bsr_matvec": "dprox_bsr_matvec_error_string",
+                 "csr_matvec": "dprox_csr_matvec_error_string"}
 
 _libs: dict = {}  # name -> loaded ctypes.CDLL
 
@@ -178,9 +191,11 @@ def _per_item_scalar(t, what: str, n: int, device) -> int:
 def _on_cpu(t) -> bool:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        return False
+    if not t.is_cpu:
         raise ValueError(f"no kernel or plain version for device {t.device}")
-    return t.device.type == "cpu"
+    return True
 
 
 # --------------------------------------------------------------------------- #
@@ -472,16 +487,127 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
 fused_cg_tail.launches = 0
 
 # --------------------------------------------------------------------------- #
-# Block-sparse matrix-vector product
+# Sparse matrix-vector products: dense tiles and compressed rows
 # --------------------------------------------------------------------------- #
+
+CSR_SHORT_ROW = 16  # csr_matvec: rows of at most this many non-zeros, one thread each
+CSR_WARP_ROW = 128  # csr_matvec: rows of at most this many, one warp each
+CSR_CHUNK = 4096    # csr_matvec: longer rows in pieces of at most this many, a block each
+TILE_SEGMENT = 2    # bsr_matvec: an output block's tiles in pieces of at most this many
+
+
+class Split(NamedTuple):
+    """A segmented sum (segment s owns items ``ptr[s]:ptr[s + 1]``: the
+    non-zeros of a row, the tiles of an output block) cut for a kernel by
+    items, not by segments. ``csr_matvec`` sums a segment of at most
+    ``short`` items in one thread and one of at most ``min(CSR_WARP_ROW,
+    chunk)`` in one warp; the tile kernel has neither path (``short`` is
+    -1). Every other segment is cut into pieces of at most ``chunk`` items,
+    one thread block's work each: piece p is items ``begin[p]:end[p]`` of
+    segment ``owner[p]``, and these ``n_wide`` pieces come before the warp
+    rows' (a warp row is one piece). The pieces of the ``n_split`` segments
+    cut in two or more come first of all (``split_ptr`` delimits each
+    one's) and write partial sums, which a second launch adds in order; the
+    others write their segment's output. ``item_seg`` and ``seg_owner``
+    give the plain CSR version the same cut: the piece of each item (its
+    row where the row is uncut) and, when some row is cut, the row of each
+    piece."""
+    short: int
+    chunk: int
+    n_segments: int
+    owner: torch.Tensor
+    begin: torch.Tensor
+    end: torch.Tensor
+    split_ptr: torch.Tensor
+    n_wide: int
+    n_split: int
+    n_split_pieces: int
+    item_seg: Optional[torch.Tensor] = None
+    seg_owner: Optional[torch.Tensor] = None
+
+
+def _split(ptr, chunk: int, short: int, warp: int, device, plain: bool) -> Split:
+    ptr = np.asarray(ptr.cpu() if isinstance(ptr, torch.Tensor) else ptr, np.int64)
+    if ptr.ndim != 1 or ptr.size < 1 or ptr[0] != 0 or (np.diff(ptr) < 0).any():
+        raise ValueError("segment offsets must be non-decreasing from 0")
+    if not chunk >= max(short, 1):
+        raise ValueError(f"chunk ({chunk}) must be at least 1 and short ({short})")
+    lengths = np.diff(ptr)
+    n_seg = lengths.size
+    pieces_of = lambda n: np.maximum(1, -(-n // chunk))
+    wide = np.flatnonzero(lengths > max(short, warp))
+    counts = pieces_of(lengths[wide])
+    cut = counts > 1
+    warp_rows = np.flatnonzero((lengths > short) & (lengths <= warp))
+    # cut segments' pieces first, then whole segments by blocks, then by warps
+    segs = np.concatenate([wide[cut], wide[~cut], warp_rows])
+    counts = np.concatenate([counts[cut], counts[~cut], np.ones(warp_rows.size, np.int64)])
+    owner = np.repeat(segs, counts)
+    k = np.arange(owner.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    begin = ptr[owner] + k * chunk
+    end = np.minimum(begin + chunk, ptr[owner + 1])
+    n_split = int(cut.sum())
+    split_ptr = np.concatenate([[0], np.cumsum(counts[:n_split])])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    item_seg = seg_owner = None
+    if plain:
+        row_of_item = np.repeat(np.arange(n_seg), lengths)
+        seg_counts = pieces_of(lengths)
+        if (seg_counts > 1).any():
+            first = np.cumsum(seg_counts) - seg_counts
+            item_seg = put(first[row_of_item] + (np.arange(ptr[-1]) - ptr[row_of_item]) // chunk)
+            seg_owner = put(np.repeat(np.arange(n_seg), seg_counts))
+        else:
+            item_seg = put(row_of_item)
+    return Split(short, chunk, n_seg, put(owner), put(begin), put(end), put(split_ptr),
+                 owner.size - warp_rows.size, n_split, int(split_ptr[-1]), item_seg, seg_owner)
+
+
+def tile_split(row_ptr, device=None, chunk: int = TILE_SEGMENT) -> Split:
+    """``bsr_matvec``'s split of the output blocks' tile lists (``row_ptr``,
+    [n_out_blocks + 1]) into pieces of at most ``chunk`` tiles; every
+    output block gets a piece, one without tiles too. Built on the host
+    (one read of a device ``row_ptr``); the arrays go to ``device``."""
+    return _split(row_ptr, int(chunk), -1, -1, device, plain=False)
+
+
+def csr_split(indptr, device=None, chunk: int = CSR_CHUNK,
+              short: int = CSR_SHORT_ROW) -> Split:
+    """``csr_matvec``'s split of the rows (``indptr``, [m + 1]): rows of
+    at most ``short`` non-zeros go to a thread, rows of at most
+    ``min(CSR_WARP_ROW, chunk)`` to a warp, longer ones in pieces of at
+    most ``chunk`` to thread blocks (the kernel takes short <= 16 and
+    chunk <= 4096). Built on the host; the arrays go to ``device``."""
+    chunk, short = int(chunk), int(short)
+    return _split(indptr, chunk, short, min(CSR_WARP_ROW, chunk), device, plain=True)
+
+
+def _check_split(split: Split, n_segments: int, device):
+    """A split from ``tile_split`` / ``csr_split`` (which build its arrays
+    as contiguous int32) of ``n_segments`` segments, on ``device``."""
+    if not isinstance(split, Split) or split.n_segments != n_segments:
+        raise ValueError(f"the split must be a Split of {n_segments} segments")
+    if split.owner.device != device:
+        raise ValueError(f"the split is on {split.owner.device}, expected {device}")
+
+
+def _accumulator(dtype):
+    """The dtype the plain sparse products add in: float64 for float32
+    operands. A float32 sum of thousands of terms in one order drifts
+    ~1e-6 relative from the exact sum (the kernels' sums, in a fixed
+    order of their own, stay within ~1e-7), so a float32 yardstick could
+    not hold a kernel to 1e-6; the plain result is rounded once."""
+    return torch.float64 if dtype == torch.float32 else dtype
+
 
 def bsr_matvec_plain(tiles, idx_in, idx_out, x_blocks, n_out_blocks: int):
     """Plain PyTorch version of ``bsr_matvec``: per-tile products, then a
-    sum into each tile's output block."""
+    sum into each tile's output block, added in ``_accumulator``'s
+    dtype."""
     prod = torch.einsum("tij,tj->ti", tiles, x_blocks[idx_in.long()])
-    out = torch.zeros((n_out_blocks, tiles.shape[1]), dtype=tiles.dtype,
-                      device=tiles.device)
-    return out.index_add_(0, idx_out.long(), prod)
+    acc = _accumulator(prod.dtype)
+    out = torch.zeros((n_out_blocks, tiles.shape[1]), dtype=acc, device=tiles.device)
+    return out.index_add_(0, idx_out.long(), prod.to(acc)).to(prod.dtype)
 
 
 def bsr_row_ptr(idx_out: torch.Tensor, n_out_blocks: int) -> torch.Tensor:
@@ -493,22 +619,26 @@ def bsr_row_ptr(idx_out: torch.Tensor, n_out_blocks: int) -> torch.Tensor:
 
 def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
                x_blocks: torch.Tensor, n_out_blocks: int,
-               row_ptr: torch.Tensor | None = None) -> torch.Tensor:
+               row_ptr: torch.Tensor | None = None,
+               split: Split | None = None) -> torch.Tensor:
     """``y[idx_out[t]] += tiles[t] @ x_blocks[idx_in[t]]`` over (T, bm, bn)
     tiles; ``x_blocks`` is (Nb, bn); returns (n_out_blocks, bm), zero where
     no tile lands.
 
     ``idx_out`` must be sorted (tiles ordered by output block), and every
-    ``idx_in`` must name a row of ``x_blocks``. ``row_ptr`` is
-    ``bsr_row_ptr(idx_out, n_out_blocks)``; an operator that is applied
-    many times computes it once and passes it, and then vouches for its
-    indices: without ``row_ptr`` the wrapper checks them on the card (one
-    host read). On the card: contiguous
-    float32 or float64 tiles and ``x_blocks`` of one dtype, int32 indices;
-    products and sums in that dtype, each output written once in a fixed
-    order, so two calls give the same bits. ``T == 0`` returns zeros
-    without a launch. Not differentiable by itself: ``algo.lp.utils.BSRMat``
-    wraps it with its transposed apply as the backward.
+    ``idx_in`` must name a row of ``x_blocks``. ``split`` is
+    ``tile_split(row_ptr)`` with ``row_ptr = bsr_row_ptr(idx_out,
+    n_out_blocks)``; an operator that is applied many times builds it once
+    and passes it, and then vouches for its indices: without ``split`` the
+    wrapper checks them on the card and builds it (host reads). On the
+    card: contiguous float32 or float64 tiles and ``x_blocks`` of one
+    dtype, int32 indices; products and sums in that dtype, each output
+    written once in a fixed order (an output block of more than
+    ``split.chunk`` tiles in pieces whose partial sums a second launch
+    adds), so two calls give the same bits. ``T == 0`` returns zeros
+    without a launch. Not differentiable by itself:
+    ``algo.lp.utils.BSRMat`` wraps it with its transposed apply as the
+    backward.
     """
     T, bm, bn = tiles.shape
     n_out_blocks = int(n_out_blocks)
@@ -525,26 +655,35 @@ def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
                          "blocks do not fit together")
     if T == 0:
         return torch.zeros((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
-    if row_ptr is None:
-        _cuda_tensor(idx_out, "idx_out", torch.int32, dev, ndim=1)
-        if idx_out.numel() != T:
-            raise ValueError(f"idx_out must hold {T} values, got {idx_out.numel()}")
-        in_range = ((idx_out[1:] >= idx_out[:-1]).all() & (idx_out[0] >= 0)
-                    & (idx_out[-1] < n_out_blocks) & (idx_in >= 0).all()
-                    & (idx_in < x_blocks.shape[0]).all())
-        if not bool(in_range):
-            raise ValueError("idx_out must be sorted and within the output blocks, and "
-                             "idx_in within the rows of x_blocks")
-        row_ptr = bsr_row_ptr(idx_out, n_out_blocks)
-    _cuda_tensor(row_ptr, "row_ptr", torch.int32, dev, ndim=1)
-    if row_ptr.numel() != n_out_blocks + 1:
-        raise ValueError(f"row_ptr must hold {n_out_blocks + 1} values, got {row_ptr.numel()}")
+    if split is None:
+        if row_ptr is None:
+            _cuda_tensor(idx_out, "idx_out", torch.int32, dev, ndim=1)
+            if idx_out.numel() != T:
+                raise ValueError(f"idx_out must hold {T} values, got {idx_out.numel()}")
+            in_range = ((idx_out[1:] >= idx_out[:-1]).all() & (idx_out[0] >= 0)
+                        & (idx_out[-1] < n_out_blocks) & (idx_in >= 0).all()
+                        & (idx_in < x_blocks.shape[0]).all())
+            if not bool(in_range):
+                raise ValueError("idx_out must be sorted and within the output blocks, and "
+                                 "idx_in within the rows of x_blocks")
+            row_ptr = bsr_row_ptr(idx_out, n_out_blocks)
+        _cuda_tensor(row_ptr, "row_ptr", torch.int32, dev, ndim=1)
+        if row_ptr.numel() != n_out_blocks + 1:
+            raise ValueError(f"row_ptr must hold {n_out_blocks + 1} values, "
+                             f"got {row_ptr.numel()}")
+        split = tile_split(row_ptr, dev)
+    _check_split(split, n_out_blocks, dev)
     out = torch.empty((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
+    partial = (torch.empty((split.n_split_pieces, bm), dtype=tiles.dtype, device=dev)
+               if split.n_split_pieces else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib("bsr_matvec").dprox_bsr_matvec(
-            tiles.data_ptr(), idx_in.data_ptr(), row_ptr.data_ptr(), x_blocks.data_ptr(),
-            out.data_ptr(), n_out_blocks, bm, bn, int(tiles.dtype == torch.float64), stream)
+            tiles.data_ptr(), idx_in.data_ptr(), x_blocks.data_ptr(), split.owner.data_ptr(),
+            split.begin.data_ptr(), split.end.data_ptr(), split.split_ptr.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            split.owner.numel(), split.n_split, split.n_split_pieces, bm, bn,
+            int(tiles.dtype == torch.float64), stream)
     _check(err, "bsr_matvec", "bsr_matvec")
     bsr_matvec.launches += 1
     return out
@@ -552,9 +691,83 @@ def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
 
 bsr_matvec.launches = 0
 
+
+def csr_matvec_plain(indptr, indices, values, x, split: Split):
+    """Plain PyTorch version of ``csr_matvec``: gather, multiply, and a
+    segment sum in row order, over the pieces of ``split`` where a row is
+    cut (each piece's products in order, then the row's pieces in order),
+    added in ``_accumulator``'s dtype. ``split`` is ``csr_split(indptr)``."""
+    prod = values * x.index_select(0, indices)
+    acc = _accumulator(prod.dtype)
+    m = indptr.numel() - 1
+    zeros = lambda n: torch.zeros(n, dtype=acc, device=prod.device)
+    if split.seg_owner is None:
+        return zeros(m).index_add_(0, split.item_seg, prod.to(acc)).to(prod.dtype)
+    pieces = zeros(split.seg_owner.numel()).index_add_(0, split.item_seg, prod.to(acc))
+    return zeros(m).index_add_(0, split.seg_owner, pieces).to(prod.dtype)
+
+
+def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
+               x: torch.Tensor, split: Split | None = None) -> torch.Tensor:
+    """``y = A x`` for A in compressed-row form: ``indptr`` [m + 1] int32
+    row offsets, ``indices`` [nnz] int32 columns, ``values`` [nnz]; ``x``
+    is the flat [n] vector, without padding; returns [m].
+
+    ``split`` is ``csr_split(indptr)``; an operator that is applied many
+    times builds it once and passes it, and then vouches for its indices:
+    without ``split`` the wrapper builds it and, on the card, checks the
+    indices (host reads). On the card: contiguous float32 or float64
+    ``values`` and ``x`` of one dtype; products and sums in that dtype,
+    each output written once in an order fixed by the matrix (a row of
+    more than ``split.chunk`` non-zeros in pieces whose partial sums a
+    second launch adds), so two calls give the same bits. ``nnz == 0``
+    returns zeros without a launch. Not differentiable by itself:
+    ``algo.lp.utils.BSRMat`` wraps it with its transposed apply as the
+    backward.
+    """
+    m = indptr.numel() - 1
+    if split is None:
+        split = csr_split(indptr, indptr.device)
+        if not _on_cpu(values) and values.numel() and not bool(
+                (indices >= 0).all() & (indices < x.numel()).all()):
+            raise ValueError("indices must lie within x")
+    if _on_cpu(values):
+        return csr_matvec_plain(indptr, indices, values, x, split)
+    dev = values.device
+    _real_dtype(values, "values", "csr_matvec", (torch.float32, torch.float64))
+    _cuda_tensor(values, "values", values.dtype, dev, ndim=1)
+    _cuda_tensor(x, "x", values.dtype, dev, ndim=1)
+    _cuda_tensor(indptr, "indptr", torch.int32, dev, ndim=1)
+    _cuda_tensor(indices, "indices", torch.int32, dev, ndim=1)
+    if m < 1 or indices.numel() != values.numel():
+        raise ValueError(f"indptr of {indptr.numel()} offsets, {indices.numel()} indices and "
+                         f"{values.numel()} values do not fit together")
+    _check_split(split, m, dev)
+    if values.numel() == 0:
+        return torch.zeros(m, dtype=values.dtype, device=dev)
+    y = torch.empty(m, dtype=values.dtype, device=dev)
+    partial = (torch.empty(split.n_split_pieces, dtype=values.dtype, device=dev)
+               if split.n_split_pieces else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("csr_matvec").dprox_csr_matvec(
+            indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), x.data_ptr(),
+            split.owner.data_ptr(), split.begin.data_ptr(), split.end.data_ptr(),
+            split.split_ptr.data_ptr(), y.data_ptr(),
+            None if partial is None else partial.data_ptr(), m, split.short, split.chunk,
+            split.n_wide, split.owner.numel(), split.n_split, split.n_split_pieces,
+            int(values.dtype == torch.float64), stream)
+    _check(err, "csr_matvec", "csr_matvec")
+    csr_matvec.launches += 1
+    return y
+
+
+csr_matvec.launches = 0
+
 KERNELS = {"tv_denoise_chw": tv_denoise_chw, "freq_divide": freq_divide,
            "fused_admm_update": fused_admm_update, "bdot": bdot,
-           "fused_cg_tail": fused_cg_tail, "bsr_matvec": bsr_matvec}
+           "fused_cg_tail": fused_cg_tail, "bsr_matvec": bsr_matvec,
+           "csr_matvec": csr_matvec}
 
 
 def reset_launches():

@@ -304,21 +304,201 @@ def test_bsr_matvec_empty_output_blocks_and_no_tiles(cuda):
     assert kernels.bsr_matvec.launches == before  # no tiles: zeros without a launch
 
 
+def _arrow(n_blocks, b, seed=0):
+    """Dense diagonal blocks and a dense first block column (b x b each)."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    grid = [[None] * n_blocks for _ in range(n_blocks)]
+    for i in range(n_blocks):
+        grid[i][i] = sp.csr_matrix(0.5 + rng.rand(b, b))
+        if i:
+            grid[i][0] = sp.csr_matrix(0.5 + rng.rand(b, b))
+    return sp.bmat(grid, format="csr")
+
+
+@pytest.mark.parametrize("route", ["csr", "tiles"])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
-def test_bsr_backward_is_the_transposed_kernel(cuda, dtype, rtol):
+def test_bsr_backward_is_the_transposed_kernel(cuda, dtype, rtol, route):
     """grad of sum((A x)^2) = 2 A^T A x: one forward launch, one backward
-    launch on the other tile ordering."""
-    A, op = _bsr_operator(cuda, (40, 30), dtype, 16, 16, density=0.2, seed=1)
+    launch of the other direction, on the operator's route's kernel."""
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    if route == "csr":
+        A, op = _bsr_operator(cuda, (40, 30), dtype, 16, 16, density=0.2, seed=1)
+    else:
+        A = _arrow(3, 16, seed=1)[:40, :30].tocsr()
+        op = BSRMat(A, bm=16, bn=16, dtype=dtype, device=cuda)
+    assert op.route == route
+    counter = kernels.csr_matvec if route == "csr" else kernels.bsr_matvec
     x0 = np.random.RandomState(1).rand(30)
     x = torch.from_numpy(x0).to(device=cuda, dtype=dtype).requires_grad_()
-    before = kernels.bsr_matvec.launches
+    before = counter.launches
     g, = torch.autograd.grad(torch.sum((op @ x) ** 2), x)
-    assert kernels.bsr_matvec.launches == before + 2
+    assert counter.launches == before + 2
     np.testing.assert_allclose(g.double().cpu().numpy(), 2 * A.T @ (A @ x0), rtol=rtol)
     y0 = np.random.RandomState(2).rand(40)
     y = torch.from_numpy(y0).to(device=cuda, dtype=dtype).requires_grad_()
     gT, = torch.autograd.grad(torch.sum((op.T @ y) ** 2), y)
     np.testing.assert_allclose(gT.double().cpu().numpy(), 2 * A @ (A.T @ y0), rtol=rtol)
+
+
+def _csr_case(M, dtype, device):
+    import scipy.sparse as sp
+
+    M = sp.csr_matrix(M, copy=True)
+    M.eliminate_zeros()
+    M.sort_indices()
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+    return put(M.indptr, torch.int32), put(M.indices, torch.int32), put(M.data, dtype)
+
+
+def _long_rows(seed=0):
+    """Empty rows, rows of 1..16 (one thread each), 17..128 (one warp),
+    129 and 1000 (one block), and a column of 4500 (cut in the transpose:
+    CSR_CHUNK is 4096); odd lengths, so nothing is a multiple of a block."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    A = sp.random(5001, 1203, density=0.003, random_state=rng, format="lil")
+    A[3, :] = 0.0
+    for r, k in [(5, 16), (6, 17), (7, 128), (8, 129), (9, 1000)]:
+        A[r, rng.choice(1203, k, replace=False)] = 0.5 + rng.rand(k)
+    A[rng.choice(5001, 4500, replace=False), 11] = 0.5 + rng.rand(4500)[:, None]
+    return sp.csr_matrix(A)
+
+
+CSR_CASES = ["long rows", "random 70x33", "random 1000x700", "empty rows"]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-14)])
+@pytest.mark.parametrize("case", CSR_CASES)
+@pytest.mark.parametrize("chunk,short", [(None, None), (8, 4), (32, 0)])
+def test_csr_matvec_kernel_matches_plain(cuda, case, dtype, tol, chunk, short):
+    """Both directions: rows summed by a thread, a warp, a block, and cut
+    into pieces that a second launch adds; relative 1e-6 (float32) / 1e-14
+    (float64) of the largest entry against the plain version, which sums
+    the same pieces in row order (in float64 for float32 operands); the
+    same bits twice; y at its length. Entries and x are positive, as the
+    LP's products mostly are: a float64 sum of thousands of terms with
+    cancellation drifts more than 1e-14 of the largest entry in any
+    order."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(4)
+    A = {"long rows": lambda: _long_rows(),
+         "random 70x33": lambda: sp.random(70, 33, density=0.05, random_state=rng),
+         "random 1000x700": lambda: sp.random(1000, 700, density=0.02, random_state=rng),
+         "empty rows": lambda: sp.csr_matrix((np.ones(3), ([0, 0, 5], [1, 4, 2])), (9, 6)),
+         }[case]()
+    for M in (sp.csr_matrix(A), sp.csr_matrix(A.T)):
+        indptr, indices, values = _csr_case(M, dtype, cuda)
+        kw = {} if chunk is None else {"chunk": chunk, "short": short}
+        split = kernels.csr_split(indptr, cuda, **kw)
+        x = torch.from_numpy(rng.rand(M.shape[1])).to(device=cuda, dtype=dtype)
+        before = kernels.csr_matvec.launches
+        got = kernels.csr_matvec(indptr, indices, values, x, split)
+        again = kernels.csr_matvec(indptr, indices, values, x, split)
+        assert kernels.csr_matvec.launches == before + 2
+        ref = kernels.csr_matvec_plain(indptr, indices, values, x, split)
+        exact = M @ x.double().cpu().numpy()
+        torch.cuda.synchronize()
+        assert got.shape == (M.shape[0],) and got.dtype == dtype and torch.equal(got, again)
+        scale = max(float(ref.abs().max()), 1e-300)
+        assert float((got - ref).abs().max()) <= tol * scale
+        assert np.abs(got.double().cpu().numpy() - exact).max() <= 100 * tol * scale
+        if case == "empty rows":
+            assert float(got[np.diff(M.indptr) == 0].abs().max()) == 0.0
+        if case == "long rows" and chunk is None and M.shape[0] == 1203:
+            assert split.n_split > 0  # the column of 4500, cut with the default chunk
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-14)])
+def test_bsr_matvec_cuts_long_tile_lists(cuda, dtype, tol):
+    """An arrow operator: block column 0 gives the transposed apply one
+    output block of 9 tiles (more than TILE_SEGMENT), cut into pieces whose
+    partials a second launch adds; the forward apply stays one launch. Same
+    bits twice, relative 1e-6 / 1e-14 against the plain version."""
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    A = _arrow(9, 40, seed=2)[:350, :]  # a ragged last block row
+    op = BSRMat(A, bm=40, bn=40, dtype=dtype, device=cuda)
+    assert op.route == "tiles" and op.split.n_split == 0 and op.splitT.n_split == 1
+    rng = np.random.RandomState(5)
+    for tiles, idx_in, idx_out, split, n_in, n_out, M in (
+            (op.tiles, op.col_ids, op.row_ids, op.split, op.Nb, op.Mb, A),
+            (op.tilesT, op.row_idsT, op.col_idsT, op.splitT, op.Mb, op.Nb, A.T)):
+        x = torch.from_numpy(rng.rand(n_in, 40)).to(device=cuda, dtype=dtype)
+        before = kernels.bsr_matvec.launches
+        got = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out, split=split)
+        again = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out, split=split)
+        unsplit = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out,
+                                     split=kernels.tile_split(kernels.bsr_row_ptr(idx_out, n_out),
+                                                              cuda, chunk=10 ** 6))
+        assert kernels.bsr_matvec.launches == before + 3
+        ref = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, x, n_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        for t in (got, unsplit):
+            assert float((t - ref).abs().max()) <= tol * float(ref.abs().max())
+    v = rng.rand(A.shape[0])
+    got = (op.T @ torch.from_numpy(v).to(device=cuda, dtype=dtype)).double().cpu().numpy()
+    assert np.abs(got - A.T @ v).max() <= 100 * tol * np.abs(A.T @ v).max()
+
+
+def test_csr_matvec_raises_on_what_it_does_not_take(cuda):
+    import scipy.sparse as sp
+
+    indptr, indices, values = _csr_case(sp.random(30, 20, density=0.2, random_state=0),
+                                        torch.float32, cuda)
+    x = torch.rand(20, device=cuda)
+    split = kernels.csr_split(indptr, cuda)
+    with pytest.raises(TypeError):
+        kernels.csr_matvec(indptr, indices, values.half(), x.half(), split)
+    with pytest.raises(TypeError):
+        kernels.csr_matvec(indptr, indices, values, x.double(), split)
+    with pytest.raises(TypeError):
+        kernels.csr_matvec(indptr, indices.long(), values, x, split)
+    with pytest.raises(ValueError):
+        kernels.csr_matvec(indptr, indices, values, x.cpu(), split)
+    with pytest.raises(ValueError):
+        kernels.csr_matvec(indptr, indices, values, x[::2], split)
+    with pytest.raises(ValueError):
+        kernels.csr_matvec(indptr, indices, values[:-1], x, split)
+    with pytest.raises(ValueError):
+        kernels.csr_matvec(indptr[:-1].contiguous(), indices, values, x, split)
+    with pytest.raises(ValueError, match="within x"):
+        kernels.csr_matvec(indptr, indices, values, x[:5].contiguous())
+    with pytest.raises(RuntimeError, match="csr_matvec kernel launch failed"):
+        kernels.csr_matvec(indptr, indices, values, x, split._replace(chunk=4097))
+    with pytest.raises(NotImplementedError, match="CS-MRI"):
+        kernels.csr_matvec(indptr, indices, values.to(torch.complex64), x, split)
+    before = kernels.csr_matvec.launches
+    empty = _csr_case(sp.csr_matrix((7, 20)), torch.float32, cuda)
+    assert torch.equal(kernels.csr_matvec(*empty, x), torch.zeros(7, device=cuda))
+    assert kernels.csr_matvec.launches == before  # no non-zeros: zeros without a launch
+
+
+def test_matmat_rmatmat_give_the_same_bits_twice(cuda):
+    """The scenario-batched applies add each output block's tile products
+    in tile order (no index_add atomics): two calls, the same bits."""
+    import scipy.sparse as sp
+
+    from dprox_tpu_torch.algo.lp import BSRMat
+    from dprox_tpu_torch.contrib.energy_system import synthetic_cep_model
+
+    c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(512, 16)
+    A = sp.vstack([A_ub, A_eq, sp.eye(c.shape[0])]).tocsr()
+    op = BSRMat(A, dtype=torch.float32, device=cuda)
+    rng = np.random.RandomState(6)
+    X = torch.from_numpy(rng.randn(A.shape[1], 8).astype(np.float32)).to(cuda)
+    Y = torch.from_numpy(rng.randn(A.shape[0], 8).astype(np.float32)).to(cuda)
+    for f, V, M in ((op.matmat, X, A), (op.rmatmat, Y, A.T)):
+        got, again = f(V), f(V)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        exact = M @ V.double().cpu().numpy()
+        assert np.abs(got.double().cpu().numpy() - exact).max() <= 1e-5 * np.abs(exact).max()
 
 
 def test_bsr_matvec_raises_on_what_it_does_not_take(cuda):
@@ -358,7 +538,8 @@ def test_lp_solve_on_cuda_matches_cpu(cuda):
         kernels.reset_launches()
         x, res = lp.LPSolverADMM(verbose=False).solve_fused(p, max_iters=500)
         counts = kernels.launch_counts()
-        assert (counts["bsr_matvec"] > 0) == (device == "cuda")
+        assert p.A.route == "csr" and counts["bsr_matvec"] == 0
+        assert (counts["csr_matvec"] > 0) == (device == "cuda")
         assert (counts["bdot"] > 0) == (device == "cuda")
         out[device] = (x.cpu().numpy(), res["iters"])
     assert out["cpu"][1] == out["cuda"][1]

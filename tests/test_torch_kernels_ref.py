@@ -149,8 +149,13 @@ def test_solver_wrappers_take_plain_version_on_cpu():
     tiles, ids = torch.ones(2, 3, 4), torch.tensor([0, 1], dtype=torch.int32)
     assert torch.equal(kernels.bsr_matvec(tiles, ids, ids, torch.ones(2, 4), 2),
                        kernels.bsr_matvec_plain(tiles, ids, ids, torch.ones(2, 4), 2))
+    indptr, cols = torch.tensor([0, 2, 3], dtype=torch.int32), torch.tensor([0, 3, 1], dtype=torch.int32)
+    split = kernels.csr_split(indptr)
+    assert torch.equal(kernels.csr_matvec(indptr, cols, torch.ones(3), torch.arange(4.0)),
+                       kernels.csr_matvec_plain(indptr, cols, torch.ones(3), torch.arange(4.0), split))
     assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide", "bsr_matvec",
-                                            "fused_admm_update", "bdot", "fused_cg_tail"}
+                                            "csr_matvec", "fused_admm_update", "bdot",
+                                            "fused_cg_tail"}
     assert set(kernels.launch_counts().values()) == {0}
 
 
