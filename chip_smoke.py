@@ -46,11 +46,7 @@ exits non-zero):
               backward (pretrain_lp, solve_lp), the chunked solve at
               synthetic_cep_model(2048, 16) and a float64 solve at
               synthetic_cep_model(64, 8).
-8. lp_tiles - a block-angular LP with a planted optimum, whose dense
-              blocks take the tile route: bsr_matvec launch counts against
-              the iteration counts, objective and feasibility against
-              HiGHS.
-9. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
+8. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
               solve_consensus_lp(fused=True) in float32 against the HiGHS
               optimum of the extensive form, twice, bit for bit.
 
@@ -136,7 +132,10 @@ LP_OBJECTIVE_TOL = 1e-3         # |c @ x - HiGHS| / |HiGHS|
 LP_GAP_SLACK = 1e-3             # each gap <= r_norm * (1 + slack) + 1e-6
 LP_X_MIN = -1e-2
 CONSENSUS_OBJECTIVE_TOL = 5e-3  # against the extensive form's HiGHS optimum
-SPMV_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}  # max |kernel - plain| / max |plain|
+# max |kernel - plain| / max |plain|, the plain version run on float64
+# copies of the same inputs (a float32 sum of thousands of terms in one
+# order drifts ~1e-6 from the exact sum, in another order as much again)
+SPMV_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 SPMV_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
 
 TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32
@@ -776,9 +775,9 @@ def long_rows(rng):
 
 def _routes(kernels, op, A, transposed, dtype, dev):
     """Both routes' kernel arguments for one direction of a BSRMat: the
-    tiles with their split (the operator's own on the tile route), and the
-    compressed rows of the same matrix from scipy with their split (on the
-    compressed route, equal to the operator's own: checked)."""
+    tiles with their row_ptr, and the compressed rows of the same matrix
+    from scipy with their split (on the compressed route, equal to the
+    operator's own: checked)."""
     import scipy.sparse as sp
 
     M = sp.csr_matrix(A.T if transposed else A, copy=True)
@@ -788,10 +787,6 @@ def _routes(kernels, op, A, transposed, dtype, dev):
         tiles, idx_in, idx_out, ptr, n_in = op.tilesT, op.row_idsT, op.col_idsT, op.row_ptrT, op.Mb
     else:
         tiles, idx_in, idx_out, ptr, n_in = op.tiles, op.col_ids, op.row_ids, op.row_ptr, op.Nb
-    if op.route == "tiles":
-        tsplit = op.splitT if transposed else op.split
-    else:
-        tsplit = kernels.tile_split(ptr, dev)
     put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
     csr = (put(M.indptr, torch.int32), put(M.indices, torch.int32), put(M.data, dtype))
     if op.route == "csr":
@@ -802,19 +797,20 @@ def _routes(kernels, op, A, transposed, dtype, dev):
     else:
         csplit = kernels.csr_split(csr[0], dev)
     n_out = ptr.numel() - 1
-    return M, (tiles, idx_in, idx_out, n_in, n_out, tsplit), csr + (csplit,)
+    return M, (tiles, idx_in, idx_out, n_in, n_out, ptr), csr + (csplit,)
 
 
 def _spmv_case(kernels, route, args, v, M, dtype, dev):
-    """One kernel call twice and its plain version on the card: (got,
-    again, ref) as flat vectors of M's row count."""
+    """One kernel call twice and its plain version on float64 copies of the
+    same inputs, on the card: (got, again, ref) as flat vectors of M's row
+    count."""
     if route == "tiles":
-        tiles, idx_in, idx_out, n_in, n_out, split = args
+        tiles, idx_in, idx_out, n_in, n_out, ptr = args
         vb = torch.zeros(n_in * tiles.shape[2], dtype=dtype, device=dev)
         vb[:v.numel()] = v
         vb = vb.reshape(n_in, -1)
-        run = lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, split=split)
-        plain = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out)
+        run = lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
+        plain = kernels.bsr_matvec_plain(tiles.double(), idx_in, idx_out, vb.double(), n_out)
         got, again = run(), run()
         pad = got.reshape(-1)[M.shape[0]:]
         if pad.numel() and float(pad.abs().max()) != 0.0:
@@ -823,7 +819,8 @@ def _spmv_case(kernels, route, args, v, M, dtype, dev):
         return flat(got), flat(again), flat(plain)
     indptr, indices, values, split = args
     run = lambda: kernels.csr_matvec(indptr, indices, values, v, split)
-    return run(), run(), kernels.csr_matvec_plain(indptr, indices, values, v, split)
+    return run(), run(), kernels.csr_matvec_plain(indptr, indices, values.double(),
+                                                  v.double(), split)
 
 
 def phase_check_bsr(kernels, dev):
@@ -861,26 +858,22 @@ def phase_check_bsr(kernels, dev):
                                                  dtype, dev)
                 v = torch.from_numpy(rng.rand(M.shape[1])).to(device=dev, dtype=dtype)
                 exact = M @ v.double().cpu().numpy()
-                variants = [("tiles", tile_args), ("csr", csr_args)]
-                if name.startswith(("cep(512", "long rows")):  # rows cut much finer
-                    variants.append(("csr", csr_args[:3] + (kernels.csr_split(
-                        csr_args[0], dev, chunk=8, short=4),)))
-                for route, args in variants:
+                for route, args in (("tiles", tile_args), ("csr", csr_args)):
                     got, again, ref = _spmv_case(kernels, route, args, v, M, dtype, dev)
                     torch.cuda.synchronize()
-                    err = float((got - ref).abs().max())
+                    err = float((got.double() - ref).abs().max())
                     rel = err / max(float(ref.abs().max()), 1e-300)
                     rel_scipy = float(np.abs(got.double().cpu().numpy() - exact).max()
                                       / max(np.abs(exact).max(), 1e-300))
-                    split = args[-1]
                     case = {"matrix": name, "shape": list(A.shape), "tiles": op.n_tiles,
                             "nnz": int(M.nnz), "blocks": [bm, bn],
                             "dtype": str(dtype).replace("torch.", ""), "direction": direction,
-                            "route": route, "split": [split.short, split.chunk],
-                            "cut_segments": split.n_split, "max_abs_err": err,
-                            "max_rel_err": rel, "max_rel_err_vs_scipy_float64": rel_scipy}
+                            "route": route, "max_abs_err": err, "max_rel_err": rel,
+                            "max_rel_err_vs_scipy_float64": rel_scipy}
+                    if route == "csr":
+                        case["cut_rows"] = args[-1].n_split
                     cases.append(case)
-                    what = f"{route} {name} {case['dtype']} {direction} split {case['split']}"
+                    what = f"{route} {name} {case['dtype']} {direction}"
                     if not rel <= SPMV_REL_TOL[dtype]:
                         raise AssertionError(f"{what}: relative diff {rel} > {SPMV_REL_TOL[dtype]}")
                     if not rel_scipy <= SPMV_SCIPY_REL_TOL[dtype]:
@@ -946,21 +939,21 @@ def phase_check_bsr(kernels, dev):
     rows = []
     for (name, direction), (op, M, tile_args, csr_args, v) in timed.items():
         lib = torch.sparse_csr_tensor(*csr_args[:3], size=M.shape).to(dev)
-        tiles, idx_in, idx_out, n_in, n_out, tsplit = tile_args
+        tiles, idx_in, idx_out, n_in, n_out, ptr = tile_args
         vb = torch.zeros(n_in * tiles.shape[2], device=dev)
         vb[:v.numel()] = v
         vb = vb.reshape(n_in, -1)
         indptr, indices, values, csplit = csr_args
         T, bm_, bn_ = tiles.shape
         item = 4
-        tile_bytes = T * bm_ * bn_ * item + vb.numel() * item + n_out * bm_ * item + 4 * (
-            T + 3 * tsplit.owner.numel())
+        tile_bytes = (T * bm_ * bn_ * item + vb.numel() * item + n_out * bm_ * item
+                      + 4 * (T + n_out + 1))
         csr_bytes = M.nnz * (item + 4) + (M.shape[0] + 1) * 4 + sum(M.shape) * item
         apply = (lambda: op.T @ v) if direction == "transposed" else (lambda: op @ v)
         library_ms = time_ms(lambda: lib @ v)
         for route, launch, plain, nbytes, ops in [
                 ("tiles", lambda: kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out,
-                                                     split=tsplit),
+                                                     row_ptr=ptr),
                  lambda: kernels.bsr_matvec_plain(tiles, idx_in, idx_out, vb, n_out),
                  tile_bytes, 2 * T * bm_ * bn_),
                 ("csr", lambda: kernels.csr_matvec(indptr, indices, values, v, csplit),
@@ -972,35 +965,20 @@ def phase_check_bsr(kernels, dev):
                        == (name, direction, route, "float32"))
             rows.append({"matrix": name, "shape": list(M.shape), "nnz": int(M.nnz),
                          "tiles": T, "direction": direction, "route": route,
-                         "operator_route": op.route, "cut_segments": (tsplit if route == "tiles"
-                                                                      else csplit).n_split,
-                         "max_abs_err": err, "ms": time_ms(launch),
+                         "operator_route": op.route, "max_abs_err": err, "ms": time_ms(launch),
                          "eager_ms": time_ms(launch, graph=False),
                          "plain_ms": time_ms(plain), "library_ms": library_ms,
                          "bound_ms": b_route[0], "bound_by": b_route[1], "bytes": nbytes})
         rows[-1]["operator_eager_ms"] = time_ms(apply, graph=False)
-    # the tile route's piece length on the arrow operator: graph-replay ms of
-    # each direction with the lists cut into pieces of at most K tiles
-    sweep = {}
-    for K in (1, 2, 4, 8, 16, 64):
-        sweep[K] = {}
-        for direction in ("forward", "transposed"):
-            _, _, (tiles, idx_in, idx_out, n_in, n_out, _), _, v = timed[("arrow 64x128",
-                                                                          direction)]
-            vb = torch.zeros(n_in * tiles.shape[2], device=dev)
-            vb[:v.numel()] = v
-            vb = vb.reshape(n_in, -1)
-            split = kernels.tile_split(kernels.bsr_row_ptr(idx_out, n_out), dev, chunk=K)
-            sweep[K][direction] = time_ms(lambda: kernels.bsr_matvec(
-                tiles, idx_in, idx_out, vb, n_out, split=split))
     pick = lambda name, direction, route: next(
         r for r in rows if (r["matrix"], r["direction"], r["route"]) == (name, direction, route))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bsr = {"name": "bsr_matvec", "route": "cuda",
            "source": "dprox_tpu_torch/csrc/bsr_matvec.cu",
            "replaces": "dprox_tpu/ops/pallas_kernels.py:173",
-           **{k: pick("arrow 64x128", "forward", "tiles")[k] for k in keys},
-           "shape": "arrow 64x128 forward (the tile route's operator)",
+           **{k: pick("cep(512,16)", "forward", "tiles")[k] for k in keys},
+           "shape": "cep(512,16) forward (the LP operator, which takes the csr route; "
+                    "no workload of the repo takes the tile route)",
            "library": "torch.sparse CSR A @ x (float32) of the same matrix",
            "at_shapes": [r for r in rows if r["route"] == "tiles"]}
     csr = {"name": "csr_matvec", "route": "cuda",
@@ -1019,16 +997,14 @@ def phase_check_bsr(kernels, dev):
                                           / pick(name, d, "csr")["library_ms"]
                                           for d in ("forward", "transposed")}}
               for name in ("cep(512,16)", "cep(2048,16)", "arrow 64x128")}
-    emit({"phase": "check_bsr", "routes": routes, "ratios": ratios,
-          "tile_segment_sweep_arrow_ms": sweep, "cases": cases,
+    emit({"phase": "check_bsr", "routes": routes, "ratios": ratios, "cases": cases,
           "backward_cases": backward,
           "bdot_float64_cases": bdot64,
           "tolerance": {"float32": SPMV_REL_TOL[torch.float32],
                         "float64": SPMV_REL_TOL[torch.float64],
-                        "of": "max |kernel - plain| / max |plain|"},
-          "split_defaults": {"csr_short_row": kernels.CSR_SHORT_ROW,
-                             "csr_chunk": kernels.CSR_CHUNK,
-                             "tile_segment": kernels.TILE_SEGMENT},
+                        "of": "max |kernel - plain| / max |plain|, plain on float64 copies"},
+          "csr_split": {"short_row": kernels.CSR_SHORT_ROW, "warp_row": kernels.CSR_WARP_ROW,
+                        "chunk": kernels.CSR_CHUNK},
           "timing": "CUDA-graph replay (ms) and eager calls (eager_ms), median of 30 x 10 "
                     "calls, float32; the 2048-period operator's 85 MB of tiles per direction "
                     "exceed the 50 MB L2",
@@ -1266,76 +1242,6 @@ def phase_lp(kernels, dev, card):
     return launches
 
 
-def planted_block_lp(n_blocks, b=128, seed=1):
-    """(c, A_ub, b_ub, optimum) of min c x over A_ub x <= b_ub, x >= 0 with
-    A_ub = arrow(n_blocks, b): dense blocks and a dense first block column,
-    the shape of a first-stage block linked to every later stage. The
-    optimum is planted as LP test generators do: a primal x* with half its
-    entries zero, a dual y* >= 0 with half its rows inactive, slack on the
-    inactive rows only, and c = s - A_ub^T y* with reduced costs s > 0 only
-    where x* = 0; strict complementarity makes x* the unique solution."""
-    A = arrow(n_blocks, b, seed)
-    m, n = A.shape
-    rng = np.random.RandomState(seed)
-    basic, active = rng.rand(n) < 0.5, rng.rand(m) < 0.5
-    x = np.where(basic, 0.5 + rng.rand(n), 0.0)
-    y = np.where(active, 0.5 + rng.rand(m), 0.0)
-    b_ub = A @ x + np.where(active, 0.0, 0.5 + rng.rand(m))
-    c = np.where(basic, 0.0, 0.5 + rng.rand(n)) - A.T @ y
-    return c, A, b_ub, float(c @ x)
-
-
-def phase_lp_tiles(kernels, dev, card):
-    """The planted block-angular LP at 4 blocks of 128 (512 variables,
-    [A_ub; I] 1024 x 512 in 11 tiles of 128 x 128). In float32 its dense
-    tiles move fewer bytes than compressed rows, so the solve runs
-    bsr_matvec, whose transposed apply cuts block column 0's 5 tiles into
-    pieces. (At 8 blocks the float32 solve's stop is a slow draw that can
-    run past max_iters.) Gates as in
-    phase lp: converged, the launch count the iteration counts imply, each
-    feasibility gap within the solve's r_norm, the objective within
-    LP_OBJECTIVE_TOL of HiGHS (solved here; the planted optimum is printed)."""
-    from dprox_tpu_torch.algo import lp
-
-    c, A, b, planted = planted_block_lp(4)
-    highs_fun = _highs(c, A, b, None, None)
-    p = lp.LPProblem(c, A, b, None, None, dtype=torch.float32)
-    if p.A.route != "tiles" or p.A.splitT.n_split != 1:
-        raise AssertionError(f"lp_tiles: route {p.A.route}, expected tiles with one cut list")
-    solver = lp.LPSolverADMM(dtype=torch.float32, verbose=False)
-    solver.solve_fused(p, max_iters=25)  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    x, res = solver.solve_fused(p, max_iters=20000)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    iters = res["iters"]
-    inner, odd = divmod(launches["bdot"] - iters, 2)
-    expected = dict.fromkeys(launches, 0) | {
-        "bdot": launches["bdot"], "bsr_matvec": 4 * iters + 2 * inner + 2 * -(-iters // 25)}
-    try:  # print the line before a gate fails
-        out, failed = _lp_gates("lp_tiles", c, A, b, None, None, x, highs_fun, res), None
-    except AssertionError as e:
-        out, failed = {"failed": str(e)}, e
-    emit({"phase": "lp_tiles", "config": "planted_block_lp(4): arrow(4, 128), float32, "
-          "LPSolverADMM().solve_fused(p, max_iters=20000)",
-          "A_shape": list(p.A.shape), "tiles": p.A.n_tiles, "nnz": p.A.nnz,
-          "route": p.A.route, "transposed_pieces": p.A.splitT.owner.numel(),
-          "planted_objective": planted, "seconds": seconds, "s_per_iteration": seconds / iters,
-          "pcg_iterations": inner, "pcg_iterations_per_iteration": inner / iters,
-          "launches": launches, "card": card, **out})
-    if failed:
-        raise failed
-    if launches != expected or odd or inner <= 0:
-        raise AssertionError(f"lp_tiles: launch counts {launches} != {expected} "
-                             f"(iterations {iters}, PCG iterations {inner})")
-    if not (bool(torch.isfinite(x).all()) and tuple(x.shape) == (c.shape[0],)):
-        raise AssertionError(f"lp_tiles: bad output shape {tuple(x.shape)} or non-finite")
-    return launches
-
-
 def phase_lp_consensus(kernels, dev, card):
     from scipy.optimize import linprog
 
@@ -1414,19 +1320,22 @@ def main() -> int:
     joint = phase_joint(dp, kernels, dev, card)
     by_path.update(joint_cg_pallas=joint["cg_pallas"], joint_default_pcg=joint["default_pcg"])
     by_path["lp"] = phase_lp(kernels, dev, card)
-    by_path["lp_tiles"] = phase_lp_tiles(kernels, dev, card)
     phase_lp_consensus(kernels, dev, card)
-    # each kernel's count on the main-path solve that is its own
+    # each kernel's count on the main-path solve that is its own; bsr_matvec
+    # has none: every operator a path builds moves fewer bytes as compressed
+    # rows (BSRMat.route), and phase check_bsr holds the tile kernel
     own = {"tv_denoise_chw": "flagship", "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
-           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": "lp_tiles",
-           "csr_matvec": "lp"}
+           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": None, "csr_matvec": "lp"}
     for k in measured:
-        k["launches"] = by_path[own[k["name"]]][k["name"]]
-        k["launches_counted_on"] = own[k["name"]]
-        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was not launched on the {own[k['name']]} path")
+        path = own[k["name"]]
+        k["launches_by_path"] = {p: counts[k["name"]] for p, counts in by_path.items()}
+        k["launches"] = k["launches_by_path"][path] if path else 0
+        k["launches_counted_on"] = path
+        if path and k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on the {path} path")
+        if not path and any(k["launches_by_path"].values()):
+            raise AssertionError(f"{k['name']} was launched on a path: {k['launches_by_path']}")
     emit({"kernels": measured})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

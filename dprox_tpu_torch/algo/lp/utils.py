@@ -95,9 +95,8 @@ class BSRMat:
     arrays hold: ``"csr"`` when the ``nnz`` non-zeros as compressed rows
     (derived from the tiles for A and for A^T: ``csr``, ``csrT``) weigh
     less than the dense tiles, as for the sparse energy-planning LPs, and
-    ``"tiles"`` otherwise, for block-dense operators (``split`` /
-    ``splitT`` cut their long tile lists). On CPU tensors the route's plain
-    version runs.
+    ``"tiles"`` otherwise, for block-dense operators. On CPU tensors the
+    route's plain version runs.
 
     ``op @ x`` and ``op.T @ y`` are differentiable in the vector; the
     backward of one direction is the other direction's apply on the same
@@ -139,10 +138,8 @@ class BSRMat:
         self.tilesT = put(tilesT, dtype)
         self.row_idsT = put(row_idsT, torch.int32)
         self.col_idsT = put(col_idsT, torch.int32)
-        row_ptr = _row_ptr(np.asarray(row_ids), self.Mb)
-        row_ptrT = _row_ptr(np.asarray(col_idsT), self.Nb)
-        self.row_ptr = put(row_ptr, torch.int32)
-        self.row_ptrT = put(row_ptrT, torch.int32)
+        self.row_ptr = put(_row_ptr(np.asarray(row_ids), self.Mb), torch.int32)
+        self.row_ptrT = put(_row_ptr(np.asarray(col_idsT), self.Nb), torch.int32)
         indptr, indices, values = _compressed_rows(tiles, row_ids, col_ids, bm, bn, m)
         self.nnz = values.size
         item = self.tiles.element_size()
@@ -155,9 +152,6 @@ class BSRMat:
                         put(values, dtype), kernels.csr_split(indptr, dev))
             self.csrT = (put(indptrT, torch.int32), put(indicesT, torch.int32),
                          put(valuesT, dtype), kernels.csr_split(indptrT, dev))
-        else:
-            self.split = kernels.tile_split(row_ptr, dev)
-            self.splitT = kernels.tile_split(row_ptrT, dev)
 
     @property
     def dtype(self):
@@ -178,14 +172,14 @@ class BSRMat:
             return kernels.csr_matvec(indptr, indices, values, v.contiguous(), split)
         m, n = self.shape
         if transposed:
-            tiles, idx_in, idx_out, split = self.tilesT, self.row_idsT, self.col_idsT, self.splitT
+            tiles, idx_in, idx_out, ptr = self.tilesT, self.row_idsT, self.col_idsT, self.row_ptrT
             n_in, b_in, n_out, length = self.Mb, self.bm, self.Nb, n
         else:
-            tiles, idx_in, idx_out, split = self.tiles, self.col_ids, self.row_ids, self.split
+            tiles, idx_in, idx_out, ptr = self.tiles, self.col_ids, self.row_ids, self.row_ptr
             n_in, b_in, n_out, length = self.Nb, self.bn, self.Mb, m
         pad = n_in * b_in - v.shape[0]
         vb = (F.pad(v, (0, pad)) if pad else v.contiguous()).reshape(n_in, b_in)
-        out = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, split=split)
+        out = kernels.bsr_matvec(tiles, idx_in, idx_out, vb, n_out, row_ptr=ptr)
         return out.reshape(-1)[:length]
 
     def _differentiable_apply(self, v, transposed: bool):

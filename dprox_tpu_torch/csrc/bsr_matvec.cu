@@ -11,64 +11,46 @@
 // The TPU kernel walks its tiles serially on one core, eight a grid step,
 // accumulating into an output that stays in VMEM and is zeroed at step 0.
 // On the card every output row is independent of every other, so the work
-// is cut by rows: thread block (piece, part) owns ROWS_PER_BLOCK rows of
-// one piece of an output block's tile list, each of its warps owns
-// ROWS_PER_WARP of them and walks the piece's tiles in order. For each tile
-// a lane reads its x values once and one element of each of the warp's rows
-// per step (the 32 lanes read 32 neighbouring elements of a row), keeps a
-// running sum per row in registers across the piece's tiles, and the lanes'
-// sums are added once at the end by warp shuffles.
-//
-// A long tile list must not set the kernel's time: when a dense block column
-// makes one output block own hundreds of tiles, the blocks that walk it one
-// memory latency per tile finish long after the rest. So the wrapper cuts
-// every output block's list into pieces of at most K tiles, once, when the
-// operator is built (ops/kernels.py::tile_split). An output block of one
-// piece is written by that piece's thread blocks. The pieces of a longer
-// list come first and write partial sums of their rows to a workspace the
-// wrapper allocates; a second launch adds each such block's pieces in order.
-// When no output block has more than K tiles, that is one launch. Each output
-// element is written exactly once, in an order that depends only on the
-// operator: no atomics, no zero fill, no padding tiles, so two calls give the
-// same bits and the launches can be captured in a CUDA graph. Products and
-// sums are in the element type (float or double; never TF32), compiled with
+// is cut by rows, with no ordering between blocks: thread block
+// (ob, part) owns ROWS_PER_BLOCK rows of output block ob, each of its warps
+// owns ROWS_PER_WARP of them, and walks the output block's tiles in order.
+// For each tile a lane reads its x values once and one element of each of
+// the warp's rows per step (the 32 lanes read 32 neighbouring elements of a
+// row), keeps a running sum per row in registers across all the tiles, and
+// the lanes' sums are added once at the end by warp shuffles. Each output
+// element is written exactly once by one warp: no atomics, no zero fill, no
+// padding tiles, so two calls give the same bits. Products and sums are in
+// the element type (float or double; never TF32), compiled with
 // --fmad=false like the other kernels.
 //
 // Bound on the card: bytes. Every tile element is read once:
 // T * bm * bn * sizeof(T), plus the vectors. For the energy-planning LP's
 // 324 tiles of 128 x 128 floats that is 21 MB (~6.3 us at 3.35 TB/s) for a
-// product that has ~33k non-zero terms; that operator takes the compressed
-// route (csr_matvec.cu). The tile route is for operators whose tiles are
-// full enough to move fewer bytes than compressed rows would.
+// product that has ~33k non-zero terms; the dense-tile layout, not this
+// kernel, sets that cost, so that operator takes the compressed route
+// (csr_matvec.cu). BSRMat sends here only operators whose tiles move fewer
+// bytes than compressed rows would. An output block with a long tile list
+// (a dense block column of the transposed operator) is walked by its
+// (bm / ROWS_PER_BLOCK) thread blocks alone, one tile after another.
 
-#include "reduce.cuh"
+#include <cuda_runtime.h>
 
 namespace {
-
-using dprox::allow_dependent_launch;
-using dprox::launch_dependent;
-using dprox::wait_for_primary;
 
 constexpr int WARPS = 8;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS_PER_BLOCK = WARPS * ROWS_PER_WARP;
-constexpr int FINISH_THREADS = 128;
 
-// Thread block (g, part): rows [part * ROWS_PER_BLOCK, ...) of piece g, the
-// tiles [begin[g], end[g]) of output block owner[g].
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 bsr_matvec_kernel(const T* __restrict__ tiles, const int* __restrict__ idx_in,
-                  const int* __restrict__ owner, const int* __restrict__ begin,
-                  const int* __restrict__ end, const T* __restrict__ x,
-                  T* __restrict__ out, T* __restrict__ partial, int n_split_pieces,
-                  int bm, int bn) {
-  allow_dependent_launch();
-  const int g = blockIdx.x;
+                  const int* __restrict__ row_ptr, const T* __restrict__ x,
+                  T* __restrict__ out, int bm, int bn) {
+  const int ob = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.y * ROWS_PER_BLOCK + warp * ROWS_PER_WARP;
   if (row0 >= bm) return;  // whole warp leaves together; no barrier follows
-  const int t_begin = begin[g], t_end = end[g];
+  const int t_begin = row_ptr[ob], t_end = row_ptr[ob + 1];
   const long long tile_elems = (long long)bm * bn;
 
   T acc[ROWS_PER_WARP];
@@ -76,13 +58,13 @@ bsr_matvec_kernel(const T* __restrict__ tiles, const int* __restrict__ idx_in,
   for (int i = 0; i < ROWS_PER_WARP; ++i) acc[i] = T(0);
 
   // Unrolled so that the index, vector and tile loads of several tiles are in
-  // flight at once.
+  // flight at once: an output block with hundreds of tiles (a dense block
+  // column of the transposed operator) is otherwise one memory latency per tile.
 #pragma unroll 4
   for (int t = t_begin; t < t_end; ++t) {
     const T* __restrict__ xb = x + (long long)idx_in[t] * bn;
     const T* __restrict__ rows = tiles + t * tile_elems + (long long)row0 * bn;
-#pragma unroll 4
-    for (int j = lane; j < bn; j += 32) {  // a 128-wide tile: one pass, loads together
+    for (int j = lane; j < bn; j += 32) {
       const T xj = xb[j];
 #pragma unroll
       for (int i = 0; i < ROWS_PER_WARP; ++i) {
@@ -91,47 +73,22 @@ bsr_matvec_kernel(const T* __restrict__ tiles, const int* __restrict__ idx_in,
     }
   }
 
-  T* dst = g < n_split_pieces ? partial + (long long)g * bm : out + (long long)owner[g] * bm;
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     T v = acc[i];
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0 && row0 + i < bm) dst[row0 + i] = v;
+    if (lane == 0 && row0 + i < bm) out[(long long)ob * bm + row0 + i] = v;
   }
 }
 
-// Block (s, part): out[owner, row] = the pieces' partial sums of the row,
-// added in order, for the s-th output block that was cut.
 template <typename T>
-__global__ void bsr_finish_kernel(const int* __restrict__ owner,
-                                  const int* __restrict__ split_ptr,
-                                  const T* __restrict__ partial, T* __restrict__ out,
-                                  int bm) {
-  wait_for_primary();
-  const int s = blockIdx.x;
-  const int row = blockIdx.y * FINISH_THREADS + threadIdx.x;
-  if (row >= bm) return;
-  const int p0 = split_ptr[s], p1 = split_ptr[s + 1];
-  T acc = T(0);
-  // unrolled: the loads are issued together, the adds stay in order
-#pragma unroll 16
-  for (int p = p0; p < p1; ++p) acc += partial[(long long)p * bm + row];
-  out[(long long)owner[p0] * bm + row] = acc;
-}
-
-template <typename T>
-int launch(const void* tiles, const int* idx_in, const void* x, const int* owner,
-           const int* begin, const int* end, const int* split_ptr, void* out, void* partial,
-           int n_pieces, int n_split, int n_split_pieces, int bm, int bn, cudaStream_t s) {
-  const dim3 grid(n_pieces, (bm + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
+int launch(const void* tiles, const int* idx_in, const int* row_ptr, const void* x,
+           void* out, int n_out_blocks, int bm, int bn, cudaStream_t s) {
+  const dim3 grid(n_out_blocks, (bm + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
   bsr_matvec_kernel<T><<<grid, WARPS * 32, 0, s>>>(
-      static_cast<const T*>(tiles), idx_in, owner, begin, end, static_cast<const T*>(x),
-      static_cast<T*>(out), static_cast<T*>(partial), n_split_pieces, bm, bn);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 0) return (int)e;
-  const dim3 finish(n_split, (bm + FINISH_THREADS - 1) / FINISH_THREADS);
-  return launch_dependent(bsr_finish_kernel<T>, finish, FINISH_THREADS, s, owner, split_ptr,
-                          static_cast<const T*>(partial), static_cast<T*>(out), bm);
+      static_cast<const T*>(tiles), idx_in, row_ptr, static_cast<const T*>(x),
+      static_cast<T*>(out), bm, bn);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -139,31 +96,21 @@ int launch(const void* tiles, const int* idx_in, const void* x, const int* owner
 extern "C" {
 
 // Returns a cudaError_t (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing. tiles: [T, bm, bn] contiguous, ordered
-// by output block; idx_in: [T] int32 input-block index of each tile; x:
-// contiguous [*, bn] holding every block idx_in names; out: [n_out_blocks,
-// bm]. The split (ops/kernels.py::tile_split) covers every output block,
-// one without tiles too: piece p is the tiles [begin[p], end[p]) of output
-// block owner[p] (n_pieces >= n_out_blocks pieces); the first n_split_pieces
-// pieces belong to the n_split output blocks cut in two or more
-// (split_ptr [n_split + 1] delimits each one's) and write partial
-// [n_split_pieces, bm], the rest write out. is_double: 0 for float32 tiles,
-// x, out and partial, 1 for float64.
-int dprox_bsr_matvec(const void* tiles, const int* idx_in, const void* x, const int* owner,
-                     const int* begin, const int* end, const int* split_ptr, void* out,
-                     void* partial, int n_pieces, int n_split, int n_split_pieces, int bm,
-                     int bn, int is_double, void* stream) {
-  if (n_pieces <= 0 || bm <= 0 || bn <= 0 || n_split < 0 || n_split_pieces < 0 ||
-      n_split_pieces > n_pieces || (n_split > 0) != (n_split_pieces > 0) ||
-      (n_split_pieces > 0 && partial == nullptr) ||
+// synchronise and allocates nothing. tiles: [T, bm, bn] contiguous; idx_in:
+// [T] int32 input-block index of each tile; row_ptr: [n_out_blocks + 1] int32,
+// non-decreasing, row_ptr[0] = 0 and row_ptr[n_out_blocks] = T; x: contiguous
+// [*, bn] holding every block idx_in names; out: [n_out_blocks, bm].
+// is_double: 0 for float32 tiles, x and out, 1 for float64.
+int dprox_bsr_matvec(const void* tiles, const int* idx_in, const int* row_ptr,
+                     const void* x, void* out, int n_out_blocks, int bm, int bn,
+                     int is_double, void* stream) {
+  if (n_out_blocks <= 0 || bm <= 0 || bn <= 0 ||
       (bm + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    return launch<double>(tiles, idx_in, x, owner, begin, end, split_ptr, out, partial,
-                          n_pieces, n_split, n_split_pieces, bm, bn, s);
-  return launch<float>(tiles, idx_in, x, owner, begin, end, split_ptr, out, partial,
-                       n_pieces, n_split, n_split_pieces, bm, bn, s);
+    return launch<double>(tiles, idx_in, row_ptr, x, out, n_out_blocks, bm, bn, s);
+  return launch<float>(tiles, idx_in, row_ptr, x, out, n_out_blocks, bm, bn, s);
 }
 
 const char* dprox_bsr_matvec_error_string(int err) {

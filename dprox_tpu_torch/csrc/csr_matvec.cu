@@ -16,21 +16,23 @@
 // 513 (2049 at 2048 periods) non-zeros beside 8 192 (32 768) rows of 3.
 // So the wrapper sorts the rows once, when the arrays are built
 // (ops/kernels.py::csr_split), into three kinds of work, all in one launch:
-//   * rows of at most `short_len` (<= MAX_SHORT) non-zeros: one thread each,
-//     all of the row's loads issued at once (a predicated, unrolled loop),
-//     summed in row order;
+//   * rows of at most MAX_SHORT non-zeros: one thread each, all of the
+//     row's loads issued at once (a predicated, unrolled loop), summed in
+//     row order;
 //   * rows of at most WARP_ROW: one warp each; a lane sums every 32nd
 //     product, then warp shuffles add the lanes;
-//   * longer rows: pieces of at most `chunk` (<= MAX_CHUNK) non-zeros, one
-//     thread block each; a thread sums every THREADS-th product, then the
+//   * longer rows: pieces of at most MAX_CHUNK non-zeros, one thread
+//     block each; a thread sums every THREADS-th product, then the
 //     block's sum is taken in a fixed order (reduce.cuh). A row of one piece
-//     is written by its block. Only a row longer than `chunk` has several
+//     is written by its block. Only a row longer than MAX_CHUNK has several
 //     pieces: they write partial sums to a workspace (those pieces come
 //     first), and a second launch adds each such row's pieces in order.
-// So the energy-planning LP's long rows cost one launch like the short ones.
-// Each output is written exactly once, in an order that depends only on the
-// matrix: no atomics, no zero fill, the same bits twice, capturable in a
-// CUDA graph. Products and sums are in the element type (float or double),
+// So the energy-planning LP's long rows cost one launch like the short ones;
+// A^T's capacity rows are cut from 4096 periods on (an hourly year has 8760).
+// The kernel's MAX_SHORT, WARP_ROW and MAX_CHUNK are the wrapper's
+// CSR_SHORT_ROW, CSR_WARP_ROW and CSR_CHUNK. Each output is written exactly
+// once, in an order that depends only on the matrix: no atomics, no zero
+// fill, the same bits twice, capturable in a CUDA graph. Products and sums are in the element type (float or double),
 // compiled with --fmad=false like the other kernels.
 //
 // Bound on the card: bytes. nnz * (sizeof(T) + 4) for values and indices,
@@ -55,7 +57,7 @@ constexpr int PER_THREAD = 16;                    // a block piece's loads per t
 constexpr int MAX_CHUNK = THREADS * PER_THREAD;   // longest block piece, 4096
 constexpr int FINISH_THREADS = 128;
 
-// Blocks [0, row_blocks): one thread per row of at most short_len non-zeros.
+// Blocks [0, row_blocks): one thread per row of at most MAX_SHORT non-zeros.
 // Blocks [row_blocks, row_blocks + n_wide): one block per piece p < n_wide.
 // The rest: one warp per piece p >= n_wide (rows of at most WARP_ROW).
 // Pieces p < n_split_pieces write partial[p]; the others write y[owner[p]].
@@ -65,7 +67,7 @@ csr_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ indice
                   const T* __restrict__ values, const T* __restrict__ x,
                   const int* __restrict__ owner, const int* __restrict__ begin,
                   const int* __restrict__ end, T* __restrict__ y, T* __restrict__ partial,
-                  int m, int short_len, int row_blocks, int n_wide, int n_pieces,
+                  int m, int row_blocks, int n_wide, int n_pieces,
                   int n_split_pieces) {
   allow_dependent_launch();
   const int blk = blockIdx.x;
@@ -73,7 +75,7 @@ csr_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ indice
     const int r = blk * THREADS + threadIdx.x;
     if (r >= m) return;
     const int b = indptr[r], e = indptr[r + 1];
-    if (e - b > short_len) return;  // a warp or a block writes this row
+    if (e - b > MAX_SHORT) return;  // a warp or a block writes this row
     T acc = T(0);
 #pragma unroll
     for (int q = 0; q < MAX_SHORT; ++q)
@@ -133,13 +135,13 @@ __global__ void csr_finish_kernel(const int* __restrict__ owner,
 template <typename T>
 int launch(const int* indptr, const int* indices, const void* values, const void* x,
            const int* owner, const int* begin, const int* end, const int* split_ptr,
-           void* y, void* partial, int m, int short_len, int n_wide, int n_pieces,
+           void* y, void* partial, int m, int n_wide, int n_pieces,
            int n_split, int n_split_pieces, cudaStream_t s) {
   const int row_blocks = (m + THREADS - 1) / THREADS;
   const int warp_blocks = (n_pieces - n_wide + WARPS - 1) / WARPS;
   csr_matvec_kernel<T><<<row_blocks + n_wide + warp_blocks, THREADS, 0, s>>>(
       indptr, indices, static_cast<const T*>(values), static_cast<const T*>(x), owner,
-      begin, end, static_cast<T*>(y), static_cast<T*>(partial), m, short_len, row_blocks,
+      begin, end, static_cast<T*>(y), static_cast<T*>(partial), m, row_blocks,
       n_wide, n_pieces, n_split_pieces);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 0) return (int)e;
@@ -156,10 +158,10 @@ extern "C" {
 // Returns a cudaError_t (0 on success). Launches on `stream`, does not
 // synchronise and allocates nothing. indptr: [m + 1] int32, non-decreasing
 // from 0; indices: [nnz] int32 columns within x; values: [nnz]; x: [n];
-// y: [m]. The split (ops/kernels.py::csr_split): rows of at most short_len
-// (<= 16) non-zeros are summed by one thread. Every longer row is given as
+// y: [m]. The split (ops/kernels.py::csr_split): rows of at most 16
+// non-zeros are summed by one thread. Every longer row is given as
 // pieces [begin[p], end[p]) of row owner[p], n_pieces in all: the first
-// n_wide are one thread block's each (at most `chunk` <= 4096 non-zeros),
+// n_wide are one thread block's each (at most 4096 non-zeros),
 // the rest one warp's (a whole row of at most 128). The first
 // n_split_pieces pieces belong to the n_split rows cut in two or more
 // (split_ptr [n_split + 1] delimits each row's) and write partial
@@ -167,21 +169,19 @@ extern "C" {
 // y and partial, 1 for float64.
 int dprox_csr_matvec(const int* indptr, const int* indices, const void* values,
                      const void* x, const int* owner, const int* begin, const int* end,
-                     const int* split_ptr, void* y, void* partial, int m, int short_len,
-                     int chunk, int n_wide, int n_pieces, int n_split, int n_split_pieces,
-                     int is_double, void* stream) {
-  if (m <= 0 || short_len < 0 || short_len > MAX_SHORT || chunk < 1 || chunk > MAX_CHUNK ||
-      n_wide < 0 || n_wide > n_pieces || n_split < 0 || n_split_pieces < 0 ||
+                     const int* split_ptr, void* y, void* partial, int m, int n_wide,
+                     int n_pieces, int n_split, int n_split_pieces, int is_double,
+                     void* stream) {
+  if (m <= 0 || n_wide < 0 || n_wide > n_pieces || n_split < 0 || n_split_pieces < 0 ||
       n_split_pieces > n_wide || (n_split > 0) != (n_split_pieces > 0) ||
       (n_split_pieces > 0 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
     return launch<double>(indptr, indices, values, x, owner, begin, end, split_ptr, y,
-                          partial, m, short_len, n_wide, n_pieces, n_split, n_split_pieces,
-                          s);
+                          partial, m, n_wide, n_pieces, n_split, n_split_pieces, s);
   return launch<float>(indptr, indices, values, x, owner, begin, end, split_ptr, y, partial,
-                       m, short_len, n_wide, n_pieces, n_split, n_split_pieces, s);
+                       m, n_wide, n_pieces, n_split, n_split_pieces, s);
 }
 
 const char* dprox_csr_matvec_error_string(int err) {

@@ -1,6 +1,6 @@
 // Deterministic per-batch-row reductions shared by bdot.cu and cg_tail.cu,
-// the block sum csr_matvec.cu takes, and the dependent launch of the sparse
-// kernels' second pass.
+// and the block sum and the dependent launch of its second pass that
+// csr_matvec.cu takes.
 //
 // A row of D elements is reduced in two fixed-order steps: `reduce_blocks(D)`
 // blocks each write one partial sum of their grid-stride share of the row to

@@ -16,18 +16,17 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
   (csrc/csr_matvec.cu) <- ``bsr_matvec``: the sparse matrix-vector product
   of the LP path, float32 and float64, over dense tiles or over compressed
   rows, whichever moves fewer bytes for the operator
-  (``algo.lp.utils.BSRMat.route``). Both cut long segments (a long tile
-  list, a long row) into pieces, once, when the operator is built
-  (``tile_split``, ``csr_split``).
+  (``algo.lp.utils.BSRMat.route``). The compressed kernel cuts its work by
+  non-zeros, once, when the operator is built (``csr_split``).
 
 The sources in ``csrc/`` are CUDA C++ for ``sm_90a`` with a plain C
-interface (``reduce.cuh`` is the header ``bdot.cu`` and ``cg_tail.cu``
-share). ``build()`` compiles each into its own shared library with
-``nvcc`` (all sources at once, in parallel) under ``build/kernels/`` at
-first use, and the wrappers call them through ``ctypes`` with
-``data_ptr()`` pointers on PyTorch's current stream. A wrapper takes the
-plain PyTorch version only for CPU tensors; for a CUDA tensor it
-launches its kernel or raises. Each wrapper counts its launches in its
+interface (``reduce.cuh`` is the header ``bdot.cu``, ``cg_tail.cu`` and
+``csr_matvec.cu`` share). ``build()`` compiles each into its own shared
+library with ``nvcc`` (all sources at once, in parallel) under
+``build/kernels/`` at first use, and the wrappers call them through
+``ctypes`` with ``data_ptr()`` pointers on PyTorch's current stream. A
+wrapper takes the plain PyTorch version only for CPU tensors; for a CUDA
+tensor it launches its kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute.
 """
 from __future__ import annotations
@@ -78,11 +77,11 @@ _SIGNATURES = {
         "dprox_cg_tail_workspace": [_I, _LL],
     },
     "bsr_matvec": {
-        "dprox_bsr_matvec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "dprox_bsr_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "csr_matvec": {
         "dprox_csr_matvec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _P],
     },
 }
 _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
@@ -487,34 +486,28 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
 fused_cg_tail.launches = 0
 
 # --------------------------------------------------------------------------- #
-# Sparse matrix-vector products: dense tiles and compressed rows
+# Sparse matrix-vector products: compressed rows and dense tiles
 # --------------------------------------------------------------------------- #
 
-CSR_SHORT_ROW = 16  # csr_matvec: rows of at most this many non-zeros, one thread each
-CSR_WARP_ROW = 128  # csr_matvec: rows of at most this many, one warp each
-CSR_CHUNK = 4096    # csr_matvec: longer rows in pieces of at most this many, a block each
-TILE_SEGMENT = 2    # bsr_matvec: an output block's tiles in pieces of at most this many
+CSR_SHORT_ROW = 16  # rows of at most this many non-zeros: a thread each (csr_matvec.cu MAX_SHORT)
+CSR_WARP_ROW = 128  # rows of at most this many: a warp each (WARP_ROW)
+CSR_CHUNK = 4096    # longer rows: pieces of at most this many, a thread block each (MAX_CHUNK)
 
 
 class Split(NamedTuple):
-    """A segmented sum (segment s owns items ``ptr[s]:ptr[s + 1]``: the
-    non-zeros of a row, the tiles of an output block) cut for a kernel by
-    items, not by segments. ``csr_matvec`` sums a segment of at most
-    ``short`` items in one thread and one of at most ``min(CSR_WARP_ROW,
-    chunk)`` in one warp; the tile kernel has neither path (``short`` is
-    -1). Every other segment is cut into pieces of at most ``chunk`` items,
-    one thread block's work each: piece p is items ``begin[p]:end[p]`` of
-    segment ``owner[p]``, and these ``n_wide`` pieces come before the warp
-    rows' (a warp row is one piece). The pieces of the ``n_split`` segments
-    cut in two or more come first of all (``split_ptr`` delimits each
-    one's) and write partial sums, which a second launch adds in order; the
-    others write their segment's output. ``item_seg`` and ``seg_owner``
-    give the plain CSR version the same cut: the piece of each item (its
-    row where the row is uncut) and, when some row is cut, the row of each
-    piece."""
-    short: int
-    chunk: int
-    n_segments: int
+    """``csr_matvec``'s cut of a matrix's rows, by non-zeros and not by
+    rows. A row of at most ``CSR_SHORT_ROW`` non-zeros is summed by one
+    thread and one of at most ``CSR_WARP_ROW`` by one warp; every longer
+    row is cut into pieces of at most ``CSR_CHUNK``, one thread block's
+    work each. Piece p is the non-zeros ``begin[p]:end[p]`` of row
+    ``owner[p]``; the ``n_wide`` block pieces come before the warp rows'
+    (a warp row is one piece). The pieces of the ``n_split`` rows cut in
+    two or more come first of all (``split_ptr`` delimits each one's) and
+    write partial sums, which a second launch adds in order; the others
+    write their row's output. ``item_seg`` and ``seg_owner`` give the
+    plain version the same cut: the piece of each non-zero (its row where
+    the row is uncut) and, when some row is cut, the row of each piece."""
+    n_rows: int
     owner: torch.Tensor
     begin: torch.Tensor
     end: torch.Tensor
@@ -522,92 +515,52 @@ class Split(NamedTuple):
     n_wide: int
     n_split: int
     n_split_pieces: int
-    item_seg: Optional[torch.Tensor] = None
-    seg_owner: Optional[torch.Tensor] = None
+    item_seg: torch.Tensor
+    seg_owner: Optional[torch.Tensor]
 
 
-def _split(ptr, chunk: int, short: int, warp: int, device, plain: bool) -> Split:
-    ptr = np.asarray(ptr.cpu() if isinstance(ptr, torch.Tensor) else ptr, np.int64)
+def csr_split(indptr, device=None) -> Split:
+    """The ``Split`` of the rows that ``indptr`` ([m + 1] offsets)
+    delimits, built on the host (one read of a device ``indptr``); the
+    arrays go to ``device``."""
+    ptr = np.asarray(indptr.cpu() if isinstance(indptr, torch.Tensor) else indptr, np.int64)
     if ptr.ndim != 1 or ptr.size < 1 or ptr[0] != 0 or (np.diff(ptr) < 0).any():
-        raise ValueError("segment offsets must be non-decreasing from 0")
-    if not chunk >= max(short, 1):
-        raise ValueError(f"chunk ({chunk}) must be at least 1 and short ({short})")
+        raise ValueError("row offsets must be non-decreasing from 0")
     lengths = np.diff(ptr)
-    n_seg = lengths.size
-    pieces_of = lambda n: np.maximum(1, -(-n // chunk))
-    wide = np.flatnonzero(lengths > max(short, warp))
+    m = lengths.size
+    pieces_of = lambda n: np.maximum(1, -(-n // CSR_CHUNK))
+    wide = np.flatnonzero(lengths > CSR_WARP_ROW)
     counts = pieces_of(lengths[wide])
     cut = counts > 1
-    warp_rows = np.flatnonzero((lengths > short) & (lengths <= warp))
-    # cut segments' pieces first, then whole segments by blocks, then by warps
-    segs = np.concatenate([wide[cut], wide[~cut], warp_rows])
+    warp_rows = np.flatnonzero((lengths > CSR_SHORT_ROW) & (lengths <= CSR_WARP_ROW))
+    # cut rows' pieces first, then whole rows by blocks, then by warps
+    rows = np.concatenate([wide[cut], wide[~cut], warp_rows])
     counts = np.concatenate([counts[cut], counts[~cut], np.ones(warp_rows.size, np.int64)])
-    owner = np.repeat(segs, counts)
+    owner = np.repeat(rows, counts)
     k = np.arange(owner.size) - np.repeat(np.cumsum(counts) - counts, counts)
-    begin = ptr[owner] + k * chunk
-    end = np.minimum(begin + chunk, ptr[owner + 1])
+    begin = ptr[owner] + k * CSR_CHUNK
+    end = np.minimum(begin + CSR_CHUNK, ptr[owner + 1])
     n_split = int(cut.sum())
     split_ptr = np.concatenate([[0], np.cumsum(counts[:n_split])])
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-    item_seg = seg_owner = None
-    if plain:
-        row_of_item = np.repeat(np.arange(n_seg), lengths)
-        seg_counts = pieces_of(lengths)
-        if (seg_counts > 1).any():
-            first = np.cumsum(seg_counts) - seg_counts
-            item_seg = put(first[row_of_item] + (np.arange(ptr[-1]) - ptr[row_of_item]) // chunk)
-            seg_owner = put(np.repeat(np.arange(n_seg), seg_counts))
-        else:
-            item_seg = put(row_of_item)
-    return Split(short, chunk, n_seg, put(owner), put(begin), put(end), put(split_ptr),
+    row_of_item = np.repeat(np.arange(m), lengths)
+    row_pieces = pieces_of(lengths)
+    item_seg, seg_owner = put(row_of_item), None
+    if (row_pieces > 1).any():
+        first = np.cumsum(row_pieces) - row_pieces
+        item_seg = put(first[row_of_item] + (np.arange(ptr[-1]) - ptr[row_of_item]) // CSR_CHUNK)
+        seg_owner = put(np.repeat(np.arange(m), row_pieces))
+    return Split(m, put(owner), put(begin), put(end), put(split_ptr),
                  owner.size - warp_rows.size, n_split, int(split_ptr[-1]), item_seg, seg_owner)
-
-
-def tile_split(row_ptr, device=None, chunk: int = TILE_SEGMENT) -> Split:
-    """``bsr_matvec``'s split of the output blocks' tile lists (``row_ptr``,
-    [n_out_blocks + 1]) into pieces of at most ``chunk`` tiles; every
-    output block gets a piece, one without tiles too. Built on the host
-    (one read of a device ``row_ptr``); the arrays go to ``device``."""
-    return _split(row_ptr, int(chunk), -1, -1, device, plain=False)
-
-
-def csr_split(indptr, device=None, chunk: int = CSR_CHUNK,
-              short: int = CSR_SHORT_ROW) -> Split:
-    """``csr_matvec``'s split of the rows (``indptr``, [m + 1]): rows of
-    at most ``short`` non-zeros go to a thread, rows of at most
-    ``min(CSR_WARP_ROW, chunk)`` to a warp, longer ones in pieces of at
-    most ``chunk`` to thread blocks (the kernel takes short <= 16 and
-    chunk <= 4096). Built on the host; the arrays go to ``device``."""
-    chunk, short = int(chunk), int(short)
-    return _split(indptr, chunk, short, min(CSR_WARP_ROW, chunk), device, plain=True)
-
-
-def _check_split(split: Split, n_segments: int, device):
-    """A split from ``tile_split`` / ``csr_split`` (which build its arrays
-    as contiguous int32) of ``n_segments`` segments, on ``device``."""
-    if not isinstance(split, Split) or split.n_segments != n_segments:
-        raise ValueError(f"the split must be a Split of {n_segments} segments")
-    if split.owner.device != device:
-        raise ValueError(f"the split is on {split.owner.device}, expected {device}")
-
-
-def _accumulator(dtype):
-    """The dtype the plain sparse products add in: float64 for float32
-    operands. A float32 sum of thousands of terms in one order drifts
-    ~1e-6 relative from the exact sum (the kernels' sums, in a fixed
-    order of their own, stay within ~1e-7), so a float32 yardstick could
-    not hold a kernel to 1e-6; the plain result is rounded once."""
-    return torch.float64 if dtype == torch.float32 else dtype
 
 
 def bsr_matvec_plain(tiles, idx_in, idx_out, x_blocks, n_out_blocks: int):
     """Plain PyTorch version of ``bsr_matvec``: per-tile products, then a
-    sum into each tile's output block, added in ``_accumulator``'s
-    dtype."""
+    sum into each tile's output block."""
     prod = torch.einsum("tij,tj->ti", tiles, x_blocks[idx_in.long()])
-    acc = _accumulator(prod.dtype)
-    out = torch.zeros((n_out_blocks, tiles.shape[1]), dtype=acc, device=tiles.device)
-    return out.index_add_(0, idx_out.long(), prod.to(acc)).to(prod.dtype)
+    out = torch.zeros((n_out_blocks, tiles.shape[1]), dtype=tiles.dtype,
+                      device=tiles.device)
+    return out.index_add_(0, idx_out.long(), prod)
 
 
 def bsr_row_ptr(idx_out: torch.Tensor, n_out_blocks: int) -> torch.Tensor:
@@ -619,26 +572,22 @@ def bsr_row_ptr(idx_out: torch.Tensor, n_out_blocks: int) -> torch.Tensor:
 
 def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
                x_blocks: torch.Tensor, n_out_blocks: int,
-               row_ptr: torch.Tensor | None = None,
-               split: Split | None = None) -> torch.Tensor:
+               row_ptr: torch.Tensor | None = None) -> torch.Tensor:
     """``y[idx_out[t]] += tiles[t] @ x_blocks[idx_in[t]]`` over (T, bm, bn)
     tiles; ``x_blocks`` is (Nb, bn); returns (n_out_blocks, bm), zero where
     no tile lands.
 
     ``idx_out`` must be sorted (tiles ordered by output block), and every
-    ``idx_in`` must name a row of ``x_blocks``. ``split`` is
-    ``tile_split(row_ptr)`` with ``row_ptr = bsr_row_ptr(idx_out,
-    n_out_blocks)``; an operator that is applied many times builds it once
-    and passes it, and then vouches for its indices: without ``split`` the
-    wrapper checks them on the card and builds it (host reads). On the
-    card: contiguous float32 or float64 tiles and ``x_blocks`` of one
-    dtype, int32 indices; products and sums in that dtype, each output
-    written once in a fixed order (an output block of more than
-    ``split.chunk`` tiles in pieces whose partial sums a second launch
-    adds), so two calls give the same bits. ``T == 0`` returns zeros
-    without a launch. Not differentiable by itself:
-    ``algo.lp.utils.BSRMat`` wraps it with its transposed apply as the
-    backward.
+    ``idx_in`` must name a row of ``x_blocks``. ``row_ptr`` is
+    ``bsr_row_ptr(idx_out, n_out_blocks)``; an operator that is applied
+    many times computes it once and passes it, and then vouches for its
+    indices: without ``row_ptr`` the wrapper checks them on the card (one
+    host read). On the card: contiguous
+    float32 or float64 tiles and ``x_blocks`` of one dtype, int32 indices;
+    products and sums in that dtype, each output written once in a fixed
+    order, so two calls give the same bits. ``T == 0`` returns zeros
+    without a launch. Not differentiable by itself: ``algo.lp.utils.BSRMat``
+    wraps it with its transposed apply as the backward.
     """
     T, bm, bn = tiles.shape
     n_out_blocks = int(n_out_blocks)
@@ -655,35 +604,26 @@ def bsr_matvec(tiles: torch.Tensor, idx_in: torch.Tensor, idx_out: torch.Tensor,
                          "blocks do not fit together")
     if T == 0:
         return torch.zeros((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
-    if split is None:
-        if row_ptr is None:
-            _cuda_tensor(idx_out, "idx_out", torch.int32, dev, ndim=1)
-            if idx_out.numel() != T:
-                raise ValueError(f"idx_out must hold {T} values, got {idx_out.numel()}")
-            in_range = ((idx_out[1:] >= idx_out[:-1]).all() & (idx_out[0] >= 0)
-                        & (idx_out[-1] < n_out_blocks) & (idx_in >= 0).all()
-                        & (idx_in < x_blocks.shape[0]).all())
-            if not bool(in_range):
-                raise ValueError("idx_out must be sorted and within the output blocks, and "
-                                 "idx_in within the rows of x_blocks")
-            row_ptr = bsr_row_ptr(idx_out, n_out_blocks)
-        _cuda_tensor(row_ptr, "row_ptr", torch.int32, dev, ndim=1)
-        if row_ptr.numel() != n_out_blocks + 1:
-            raise ValueError(f"row_ptr must hold {n_out_blocks + 1} values, "
-                             f"got {row_ptr.numel()}")
-        split = tile_split(row_ptr, dev)
-    _check_split(split, n_out_blocks, dev)
+    if row_ptr is None:
+        _cuda_tensor(idx_out, "idx_out", torch.int32, dev, ndim=1)
+        if idx_out.numel() != T:
+            raise ValueError(f"idx_out must hold {T} values, got {idx_out.numel()}")
+        in_range = ((idx_out[1:] >= idx_out[:-1]).all() & (idx_out[0] >= 0)
+                    & (idx_out[-1] < n_out_blocks) & (idx_in >= 0).all()
+                    & (idx_in < x_blocks.shape[0]).all())
+        if not bool(in_range):
+            raise ValueError("idx_out must be sorted and within the output blocks, and "
+                             "idx_in within the rows of x_blocks")
+        row_ptr = bsr_row_ptr(idx_out, n_out_blocks)
+    _cuda_tensor(row_ptr, "row_ptr", torch.int32, dev, ndim=1)
+    if row_ptr.numel() != n_out_blocks + 1:
+        raise ValueError(f"row_ptr must hold {n_out_blocks + 1} values, got {row_ptr.numel()}")
     out = torch.empty((n_out_blocks, bm), dtype=tiles.dtype, device=dev)
-    partial = (torch.empty((split.n_split_pieces, bm), dtype=tiles.dtype, device=dev)
-               if split.n_split_pieces else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib("bsr_matvec").dprox_bsr_matvec(
-            tiles.data_ptr(), idx_in.data_ptr(), x_blocks.data_ptr(), split.owner.data_ptr(),
-            split.begin.data_ptr(), split.end.data_ptr(), split.split_ptr.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            split.owner.numel(), split.n_split, split.n_split_pieces, bm, bn,
-            int(tiles.dtype == torch.float64), stream)
+            tiles.data_ptr(), idx_in.data_ptr(), row_ptr.data_ptr(), x_blocks.data_ptr(),
+            out.data_ptr(), n_out_blocks, bm, bn, int(tiles.dtype == torch.float64), stream)
     _check(err, "bsr_matvec", "bsr_matvec")
     bsr_matvec.launches += 1
     return out
@@ -694,17 +634,16 @@ bsr_matvec.launches = 0
 
 def csr_matvec_plain(indptr, indices, values, x, split: Split):
     """Plain PyTorch version of ``csr_matvec``: gather, multiply, and a
-    segment sum in row order, over the pieces of ``split`` where a row is
-    cut (each piece's products in order, then the row's pieces in order),
-    added in ``_accumulator``'s dtype. ``split`` is ``csr_split(indptr)``."""
+    segment sum in the operands' dtype (in row order on the CPU), over the
+    pieces of ``split`` where a row is cut (each piece's products, then the
+    row's pieces). ``split`` is ``csr_split(indptr)``."""
     prod = values * x.index_select(0, indices)
-    acc = _accumulator(prod.dtype)
     m = indptr.numel() - 1
-    zeros = lambda n: torch.zeros(n, dtype=acc, device=prod.device)
+    zeros = lambda n: torch.zeros(n, dtype=prod.dtype, device=prod.device)
     if split.seg_owner is None:
-        return zeros(m).index_add_(0, split.item_seg, prod.to(acc)).to(prod.dtype)
-    pieces = zeros(split.seg_owner.numel()).index_add_(0, split.item_seg, prod.to(acc))
-    return zeros(m).index_add_(0, split.seg_owner, pieces).to(prod.dtype)
+        return zeros(m).index_add_(0, split.item_seg, prod)
+    pieces = zeros(split.seg_owner.numel()).index_add_(0, split.item_seg, prod)
+    return zeros(m).index_add_(0, split.seg_owner, pieces)
 
 
 def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
@@ -719,7 +658,7 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor
     indices (host reads). On the card: contiguous float32 or float64
     ``values`` and ``x`` of one dtype; products and sums in that dtype,
     each output written once in an order fixed by the matrix (a row of
-    more than ``split.chunk`` non-zeros in pieces whose partial sums a
+    more than ``CSR_CHUNK`` non-zeros in pieces whose partial sums a
     second launch adds), so two calls give the same bits. ``nnz == 0``
     returns zeros without a launch. Not differentiable by itself:
     ``algo.lp.utils.BSRMat`` wraps it with its transposed apply as the
@@ -742,7 +681,8 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor
     if m < 1 or indices.numel() != values.numel():
         raise ValueError(f"indptr of {indptr.numel()} offsets, {indices.numel()} indices and "
                          f"{values.numel()} values do not fit together")
-    _check_split(split, m, dev)
+    if not isinstance(split, Split) or split.n_rows != m or split.owner.device != dev:
+        raise ValueError(f"the split must be csr_split(indptr, {dev}) of {m} rows")
     if values.numel() == 0:
         return torch.zeros(m, dtype=values.dtype, device=dev)
     y = torch.empty(m, dtype=values.dtype, device=dev)
@@ -754,8 +694,8 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor
             indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), x.data_ptr(),
             split.owner.data_ptr(), split.begin.data_ptr(), split.end.data_ptr(),
             split.split_ptr.data_ptr(), y.data_ptr(),
-            None if partial is None else partial.data_ptr(), m, split.short, split.chunk,
-            split.n_wide, split.owner.numel(), split.n_split, split.n_split_pieces,
+            None if partial is None else partial.data_ptr(), m, split.n_wide,
+            split.owner.numel(), split.n_split, split.n_split_pieces,
             int(values.dtype == torch.float64), stream)
     _check(err, "csr_matvec", "csr_matvec")
     csr_matvec.launches += 1

@@ -353,97 +353,64 @@ def _csr_case(M, dtype, device):
     return put(M.indptr, torch.int32), put(M.indices, torch.int32), put(M.data, dtype)
 
 
-def _long_rows(seed=0):
+def _long_rows(long=4500, seed=0):
     """Empty rows, rows of 1..16 (one thread each), 17..128 (one warp),
-    129 and 1000 (one block), and a column of 4500 (cut in the transpose:
-    CSR_CHUNK is 4096); odd lengths, so nothing is a multiple of a block."""
+    129 and 1000 (one block), and a column of ``long`` (cut in the
+    transpose beyond CSR_CHUNK, 4096); odd lengths, so nothing is a
+    multiple of a block."""
     import scipy.sparse as sp
 
     rng = np.random.RandomState(seed)
-    A = sp.random(5001, 1203, density=0.003, random_state=rng, format="lil")
+    m = max(5001, long + 501)
+    A = sp.random(m, 1203, density=0.003, random_state=rng, format="lil")
     A[3, :] = 0.0
     for r, k in [(5, 16), (6, 17), (7, 128), (8, 129), (9, 1000)]:
         A[r, rng.choice(1203, k, replace=False)] = 0.5 + rng.rand(k)
-    A[rng.choice(5001, 4500, replace=False), 11] = 0.5 + rng.rand(4500)[:, None]
+    A[rng.choice(m, long, replace=False), 11] = 0.5 + rng.rand(long)[:, None]
     return sp.csr_matrix(A)
 
 
-CSR_CASES = ["long rows", "random 70x33", "random 1000x700", "empty rows"]
+CSR_CASES = ["long rows", "longer rows", "random 70x33", "random 1000x700", "empty rows"]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-14)])
 @pytest.mark.parametrize("case", CSR_CASES)
-@pytest.mark.parametrize("chunk,short", [(None, None), (8, 4), (32, 0)])
-def test_csr_matvec_kernel_matches_plain(cuda, case, dtype, tol, chunk, short):
+def test_csr_matvec_kernel_matches_plain(cuda, case, dtype, tol):
     """Both directions: rows summed by a thread, a warp, a block, and cut
-    into pieces that a second launch adds; relative 1e-6 (float32) / 1e-14
-    (float64) of the largest entry against the plain version, which sums
-    the same pieces in row order (in float64 for float32 operands); the
-    same bits twice; y at its length. Entries and x are positive, as the
-    LP's products mostly are: a float64 sum of thousands of terms with
-    cancellation drifts more than 1e-14 of the largest entry in any
-    order."""
+    into two or three pieces that a second launch adds; relative 1e-6
+    (float32) / 1e-14 (float64) of the largest entry against the plain
+    version on float64 copies of the same inputs; the same bits twice; y
+    at its length. Entries and x are positive, as the LP's products mostly
+    are: a float64 sum of thousands of terms with cancellation drifts more
+    than 1e-14 of the largest entry in any order."""
     import scipy.sparse as sp
 
     rng = np.random.RandomState(4)
     A = {"long rows": lambda: _long_rows(),
+         "longer rows": lambda: _long_rows(9001, seed=1),
          "random 70x33": lambda: sp.random(70, 33, density=0.05, random_state=rng),
          "random 1000x700": lambda: sp.random(1000, 700, density=0.02, random_state=rng),
          "empty rows": lambda: sp.csr_matrix((np.ones(3), ([0, 0, 5], [1, 4, 2])), (9, 6)),
          }[case]()
     for M in (sp.csr_matrix(A), sp.csr_matrix(A.T)):
         indptr, indices, values = _csr_case(M, dtype, cuda)
-        kw = {} if chunk is None else {"chunk": chunk, "short": short}
-        split = kernels.csr_split(indptr, cuda, **kw)
+        split = kernels.csr_split(indptr, cuda)
         x = torch.from_numpy(rng.rand(M.shape[1])).to(device=cuda, dtype=dtype)
         before = kernels.csr_matvec.launches
         got = kernels.csr_matvec(indptr, indices, values, x, split)
         again = kernels.csr_matvec(indptr, indices, values, x, split)
         assert kernels.csr_matvec.launches == before + 2
-        ref = kernels.csr_matvec_plain(indptr, indices, values, x, split)
+        ref = kernels.csr_matvec_plain(indptr, indices, values.double(), x.double(), split)
         exact = M @ x.double().cpu().numpy()
         torch.cuda.synchronize()
         assert got.shape == (M.shape[0],) and got.dtype == dtype and torch.equal(got, again)
         scale = max(float(ref.abs().max()), 1e-300)
-        assert float((got - ref).abs().max()) <= tol * scale
+        assert float((got.double() - ref).abs().max()) <= tol * scale
         assert np.abs(got.double().cpu().numpy() - exact).max() <= 100 * tol * scale
         if case == "empty rows":
             assert float(got[np.diff(M.indptr) == 0].abs().max()) == 0.0
-        if case == "long rows" and chunk is None and M.shape[0] == 1203:
-            assert split.n_split > 0  # the column of 4500, cut with the default chunk
-
-
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-14)])
-def test_bsr_matvec_cuts_long_tile_lists(cuda, dtype, tol):
-    """An arrow operator: block column 0 gives the transposed apply one
-    output block of 9 tiles (more than TILE_SEGMENT), cut into pieces whose
-    partials a second launch adds; the forward apply stays one launch. Same
-    bits twice, relative 1e-6 / 1e-14 against the plain version."""
-    from dprox_tpu_torch.algo.lp import BSRMat
-
-    A = _arrow(9, 40, seed=2)[:350, :]  # a ragged last block row
-    op = BSRMat(A, bm=40, bn=40, dtype=dtype, device=cuda)
-    assert op.route == "tiles" and op.split.n_split == 0 and op.splitT.n_split == 1
-    rng = np.random.RandomState(5)
-    for tiles, idx_in, idx_out, split, n_in, n_out, M in (
-            (op.tiles, op.col_ids, op.row_ids, op.split, op.Nb, op.Mb, A),
-            (op.tilesT, op.row_idsT, op.col_idsT, op.splitT, op.Mb, op.Nb, A.T)):
-        x = torch.from_numpy(rng.rand(n_in, 40)).to(device=cuda, dtype=dtype)
-        before = kernels.bsr_matvec.launches
-        got = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out, split=split)
-        again = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out, split=split)
-        unsplit = kernels.bsr_matvec(tiles, idx_in, idx_out, x, n_out,
-                                     split=kernels.tile_split(kernels.bsr_row_ptr(idx_out, n_out),
-                                                              cuda, chunk=10 ** 6))
-        assert kernels.bsr_matvec.launches == before + 3
-        ref = kernels.bsr_matvec_plain(tiles, idx_in, idx_out, x, n_out)
-        torch.cuda.synchronize()
-        assert torch.equal(got, again)
-        for t in (got, unsplit):
-            assert float((t - ref).abs().max()) <= tol * float(ref.abs().max())
-    v = rng.rand(A.shape[0])
-    got = (op.T @ torch.from_numpy(v).to(device=cuda, dtype=dtype)).double().cpu().numpy()
-    assert np.abs(got - A.T @ v).max() <= 100 * tol * np.abs(A.T @ v).max()
+        if case in ("long rows", "longer rows") and M.shape[0] == 1203:
+            assert split.n_split == 1  # the long column
 
 
 def test_csr_matvec_raises_on_what_it_does_not_take(cuda):
@@ -470,7 +437,7 @@ def test_csr_matvec_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="within x"):
         kernels.csr_matvec(indptr, indices, values, x[:5].contiguous())
     with pytest.raises(RuntimeError, match="csr_matvec kernel launch failed"):
-        kernels.csr_matvec(indptr, indices, values, x, split._replace(chunk=4097))
+        kernels.csr_matvec(indptr, indices, values, x, split._replace(n_split=1))
     with pytest.raises(NotImplementedError, match="CS-MRI"):
         kernels.csr_matvec(indptr, indices, values.to(torch.complex64), x, split)
     before = kernels.csr_matvec.launches

@@ -9,8 +9,9 @@ Tolerances: the arrays are equal bit for bit (the same host construction and
 one rounding to the dtype); products agree with the JAX package's tile
 products to 1e-5 of the largest entry in float32 and 1e-12 in float64 (the
 same terms summed in another order); a row cut into pieces gives the uncut
-row's sum exactly on integer-valued float64 data (every partial sum is an
-integer below 2**53) and to 1e-6 in float32.
+row's sum exactly on integer-valued data (every partial sum is an integer
+below 2**24) and, on random float32 data, the exact sum to 1e-5 (float32
+rounding of sums of up to 9001 terms).
 """
 import numpy as np
 import pytest
@@ -88,7 +89,7 @@ def test_compressed_rows_equal_scipy_from_both_constructions(shape, blocks, dtyp
             assert indptr.dtype == indices.dtype == torch.int32 and values.dtype == dtype
             for got, want in zip((indptr, indices, values), ref):
                 assert np.array_equal(got.numpy(), want)
-            assert split.n_segments == M.shape[0]
+            assert split.n_rows == M.shape[0]
     for a, b in zip(ops[0].csr + ops[0].csrT, ops[1].csr + ops[1].csrT):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
@@ -122,87 +123,94 @@ def test_plain_version_matches_jax_tile_products(shape, dtype, tol):
             assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
 
 
-def _long_rows(seed=0):
-    """Rows of 0, 1, 16, 17, 128, 129 and 1000 non-zeros, and 4200 rows
-    whose one non-zero is in column 5: with the transpose, every threshold
-    of the split is crossed (CSR_CHUNK is 4096)."""
+def _long_rows(long, seed=0):
+    """Rows of 0, 1, 16, 17, 128, 129 and 1000 non-zeros, and ``long`` rows
+    whose one non-zero is in column 5: with the transpose's row of ``long``
+    non-zeros, every length threshold of csr_split is crossed
+    (CSR_SHORT_ROW 16, CSR_WARP_ROW 128, CSR_CHUNK 4096)."""
     rng = np.random.RandomState(seed)
     A = sp.lil_matrix((8, 1200))
     for r, k in enumerate([0, 1, 16, 17, 128, 129, 1000, 3]):
         A[r, rng.choice(1200, k, replace=False)] = 1.0 + rng.rand(k)
-    col = sp.csr_matrix((1.0 + rng.rand(4200), (np.arange(4200), np.full(4200, 5))),
-                        (4200, 1200))
+    col = sp.csr_matrix((1.0 + rng.rand(long), (np.arange(long), np.full(long, 5))),
+                        (long, 1200))
     return sp.csr_matrix(sp.vstack([A.tocsr(), col]), dtype=np.float64)
 
 
-@pytest.mark.parametrize("chunk,short", [(8, 4), (128, 16), (33, 0), (1, 0)])
-def test_cut_rows_give_the_uncut_sums(chunk, short):
-    A = _long_rows()
+@pytest.mark.parametrize("long", [4097, 4200, 8192, 9001])
+def test_cut_rows_give_the_uncut_sums(long):
+    """A row of more than CSR_CHUNK non-zeros is summed in pieces, then the
+    pieces in order. On integer-valued data every partial sum is exact in
+    both dtypes (below 2**24), so the cut gives the uncut sum bit for bit;
+    on random float32 data it is within 1e-5 of the largest exact entry (a
+    float32 sum of up to 9001 terms, in any order, drifts ~1e-6)."""
+    A = _long_rows(long)
     rng = np.random.RandomState(2)
     for M in (A, sp.csr_matrix(A.T)):
         indptr, indices = (torch.from_numpy(a.astype(np.int32)) for a in (M.indptr, M.indices))
-        cut = kernels.csr_split(indptr, chunk=chunk, short=short)
-        whole = kernels.csr_split(indptr, chunk=10 ** 6, short=16)
+        split = kernels.csr_split(indptr)
         lengths = np.diff(M.indptr)
-        assert cut.n_split == int((lengths > chunk).sum()) and whole.n_split == 0
-        # every piece lies inside its row and the pieces tile the long rows
-        own, b, e = cut.owner.numpy(), cut.begin.numpy(), cut.end.numpy()
+        pieces = -(-lengths // kernels.CSR_CHUNK)
+        assert split.n_split == int((pieces > 1).sum()) == (M.shape[0] == 1200)
+        assert split.n_split_pieces == int(pieces[pieces > 1].sum())
+        # every piece lies inside its row and the pieces tile the rows longer
+        # than a thread's
+        own, b, e = split.owner.numpy(), split.begin.numpy(), split.end.numpy()
         assert (M.indptr[own] <= b).all() and (e <= M.indptr[own + 1]).all()
-        assert ((e - b) <= chunk).all() and set(own) == set(np.flatnonzero(lengths > short))
-        assert (e - b).sum() == lengths[lengths > short].sum()
-        # integer-valued float64: every order gives the exact sum
-        vals = torch.from_numpy(rng.randint(-9, 10, M.nnz).astype(np.float64))
-        x = torch.from_numpy(rng.randint(-9, 10, M.shape[1]).astype(np.float64))
-        got = kernels.csr_matvec(indptr, indices, vals, x, cut)
-        assert torch.equal(got, kernels.csr_matvec(indptr, indices, vals, x, whole))
-        assert np.array_equal(got.numpy(), sp.csr_matrix((vals.numpy(), M.indices, M.indptr),
-                                                         M.shape) @ x.numpy())
-        # float32: the pieces' sums in another order
-        vals = torch.from_numpy(rng.rand(M.nnz).astype(np.float32))
-        x = torch.from_numpy(rng.rand(M.shape[1]).astype(np.float32))
-        got = kernels.csr_matvec(indptr, indices, vals, x, cut)
-        ref = kernels.csr_matvec(indptr, indices, vals, x, whole)
-        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+        assert ((e - b) <= kernels.CSR_CHUNK).all()
+        wide = lengths > kernels.CSR_SHORT_ROW
+        assert set(own) == set(np.flatnonzero(wide)) and (e - b).sum() == lengths[wide].sum()
+        for dtype in (torch.float64, torch.float32):
+            vals = rng.randint(-9, 10, M.nnz).astype(np.float64)
+            x = rng.randint(-9, 10, M.shape[1]).astype(np.float64)
+            got = kernels.csr_matvec(indptr, indices, torch.from_numpy(vals).to(dtype),
+                                     torch.from_numpy(x).to(dtype), split)
+            exact = sp.csr_matrix((vals, M.indices, M.indptr), M.shape) @ x
+            assert got.dtype == dtype and np.array_equal(got.double().numpy(), exact)
+        vals, x = rng.rand(M.nnz), rng.rand(M.shape[1])
+        got = kernels.csr_matvec(indptr, indices, torch.from_numpy(vals).float(),
+                                 torch.from_numpy(x).float(), split)
+        exact = sp.csr_matrix((vals.astype(np.float32).astype(np.float64), M.indices,
+                               M.indptr), M.shape) @ x.astype(np.float32).astype(np.float64)
+        assert np.abs(got.double().numpy() - exact).max() <= 1e-5 * np.abs(exact).max()
 
 
-def test_splits_of_tile_lists_and_empty_rows():
-    """tile_split gives every output block a piece (an empty one too) and
-    cuts the long lists, their pieces first; csr_split leaves short and
-    empty rows to the row path."""
-    ptr = np.array([0, 0, 3, 4, 13, 13])  # lists of 0, 3, 1, 9, 0 tiles
-    s = kernels.tile_split(ptr, chunk=2)
-    assert (s.n_segments, s.n_split, s.n_split_pieces) == (5, 2, 7)
-    assert s.owner.tolist() == [1, 1, 3, 3, 3, 3, 3, 0, 2, 4]
-    assert s.begin.tolist() == [0, 2, 4, 6, 8, 10, 12, 0, 3, 13]
-    assert s.end.tolist() == [2, 3, 6, 8, 10, 12, 13, 0, 4, 13]
-    assert s.split_ptr.tolist() == [0, 2, 7] and s.item_seg is None
-    s = kernels.csr_split(ptr, chunk=4, short=2)
-    assert s.owner.tolist() == [3, 3, 3, 1] and s.split_ptr.tolist() == [0, 3]
-    assert (s.n_wide, s.n_split_pieces) == (3, 3)  # row 1 (3 items) is a warp's
-    assert s.item_seg.tolist() == [1, 1, 1, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5]
-    assert s.seg_owner.tolist() == [0, 1, 2, 3, 3, 3, 4]
+def test_csr_split_sorts_rows_by_length():
+    """Rows of at most CSR_SHORT_ROW non-zeros (empty ones too) stay with
+    the row path; the pieces of cut rows come first, then the rows of one
+    block, then the warp rows; the plain version sums through the same
+    cut."""
+    lengths = [0, 3, 17, 129, 5000, 0, 8193]
+    ptr = np.concatenate([[0], np.cumsum(lengths)])  # 0 0 3 20 149 5149 5149 13342
+    s = kernels.csr_split(ptr)
+    assert (s.n_rows, s.n_wide, s.n_split, s.n_split_pieces) == (7, 6, 2, 5)
+    assert s.owner.tolist() == [4, 4, 6, 6, 6, 3, 2]
+    assert s.begin.tolist() == [149, 4245, 5149, 9245, 13341, 20, 3]
+    assert s.end.tolist() == [4245, 5149, 9245, 13341, 13342, 149, 20]
+    assert s.split_ptr.tolist() == [0, 2, 5]
+    assert s.seg_owner.tolist() == [0, 1, 2, 3, 4, 4, 5, 6, 6, 6]
+    assert s.item_seg[[0, 2, 3, 19, 20, 148, 149, 4244, 4245, 5148, 5149, 13341]].tolist() == [
+        1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 7, 9]
     y = kernels.csr_matvec_plain(torch.from_numpy(ptr.astype(np.int32)),
-                                 torch.zeros(13, dtype=torch.int32), torch.ones(13),
+                                 torch.zeros(ptr[-1], dtype=torch.int32), torch.ones(ptr[-1]),
                                  torch.ones(1), s)
-    assert y.tolist() == [0.0, 3.0, 1.0, 9.0, 0.0]
+    assert y.tolist() == [float(k) for k in lengths]
+    short = kernels.csr_split(np.array([0, 0, 3, 19]))  # no row beyond a thread's
+    assert short.owner.numel() == 0 and short.seg_owner is None
+    assert short.item_seg.tolist() == [1] * 3 + [2] * 16
     with pytest.raises(ValueError):
-        kernels.csr_split(ptr, chunk=4, short=8)
-    with pytest.raises(ValueError):
-        kernels.tile_split(np.array([0, 3, 2]))
+        kernels.csr_split(np.array([0, 3, 2]))
 
 
 def test_route_follows_the_bytes():
     """The energy-planning LP takes compressed rows; a block-dense arrow
-    operator keeps its tiles, with its long tile list cut; both give
-    scipy's products."""
+    operator keeps its tiles; both give scipy's products."""
     c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(64, 8)
     p = lp.LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=torch.float32, device="cpu")
     assert p.A.route == "csr" and p.AT.base.route == "csr"
     A = arrow(12, 16)
     op = utils.BSRMat(A, bm=16, bn=16, dtype=torch.float64, device="cpu")
     assert op.route == "tiles" and op.n_tiles == 23 and not hasattr(op, "csr")
-    assert op.split.n_split == 0 and op.splitT.n_split == 1  # block column 0: 12 tiles
-    assert op.splitT.n_split_pieces == -(-12 // kernels.TILE_SEGMENT)
     rng = np.random.RandomState(3)
     x, y = rng.rand(A.shape[1]), rng.rand(A.shape[0])
     np.testing.assert_allclose((op @ torch.from_numpy(x)).numpy(), A @ x, rtol=1e-12)
@@ -214,7 +222,7 @@ def test_route_follows_the_bytes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gradient_through_the_compressed_route_is_the_transposed_apply(dtype):
-    A = _long_rows(4)
+    A = _long_rows(4200, seed=4)
     op = utils.BSRMat(A, dtype=dtype, device="cpu")
     assert op.route == "csr" and op.csrT[3].n_split > 0
     rng = np.random.RandomState(5)
