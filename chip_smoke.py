@@ -50,6 +50,9 @@ exits non-zero):
               solve_consensus_lp(fused=True) in float32 against the HiGHS
               optimum of the extensive form, twice, bit for bit.
 
+Between 2 and 3, phase kernels_per_call counts each wrapper's device
+kernels per call in a torch.profiler trace of ten calls.
+
 Then one line {"kernels": [...]}, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}. float32 convolutions and matmuls
 run with TF32 off.
@@ -68,10 +71,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 bytes/s and
-# float32 (non-tensor-core) operations/s.
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 bytes/s, and
+# float32 and float64 (non-tensor-core) operations/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_F64_OPS_PER_S = 34e12
 
 # PSNR (dB) of the flagship solve below -- _synthetic_face(512, 512), psf
 # point_spread_function(15, 5), x0 = b, log_descent(80, 30, 48), 48
@@ -141,6 +145,8 @@ SPMV_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scip
 TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
 REDUCE_REL_TOL = 1e-5  # bdot and the CG tail: float32 sums in another order
+REDUCE_REL_TOL_F64 = 1e-12  # bdot in float64
+BDOT_LP_ROWS = [(1, 8208), (1, 32784), (1, 520), (8, 520)]  # the LP paths' bdot rows
 MAIN_ITERS = 48
 NONNEG_CAP = 512
 JOINT_ITERS = 24
@@ -190,9 +196,9 @@ def time_ms(fn, runs: int = 30, inner: int = 10, graph: bool = True) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -400,6 +406,20 @@ def _best_ms(fn, reps=5):
     return best * 1e3
 
 
+def bdot_timing(kernels, p, q, err):
+    """bdot's times on (p, q): graph replay, eager, plain version, one
+    torch.linalg.vecdot call, and the bound (each operand read once, the
+    output written once; a multiply and an add per element)."""
+    n, item = p.numel(), p.element_size()
+    b = bound(2 * item * n + item * p.shape[0], 2 * n,
+              PEAK_F64_OPS_PER_S if p.dtype == torch.float64 else PEAK_F32_OPS_PER_S)
+    return {"max_abs_err": err, "ms": time_ms(lambda: kernels.bdot(p, q)),
+            "eager_ms": time_ms(lambda: kernels.bdot(p, q), graph=False),
+            "plain_ms": time_ms(lambda: kernels.bdot_plain(p, q)),
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": time_ms(lambda: torch.linalg.vecdot(p.flatten(1), q.flatten(1)))}
+
+
 def phase_check_solver_kernels(kernels, dev):
     """fused_admm_update, bdot and fused_cg_tail against their plain
     versions on the card; returns per-kernel measurements."""
@@ -423,23 +443,32 @@ def phase_check_solver_kernels(kernels, dev):
                 if err != 0.0:
                     raise AssertionError(f"fused_admm_update {shape} {kind}: max|diff| {err} != 0")
 
+    # the paths' rows: B and B' (1x3x256x256), C and pretraining ([1, 8208]
+    # LP variables), the chunked solve ([1, 32784]), the float64 solve
+    # ([1, 520]) and consensus ([8, 520] scenarios); odd sizes; the path
+    # C rows in float64 too
     bdot_cases = []
-    for shape in [(1, 3, 256, 256), (1, 3, 512, 512)] + odd:
-        a = _randn(rng, shape, dev)
-        q = 1.5 * a + 0.1 * _randn(rng, shape, dev)  # <p, q> > 0, as <p, A p> for SPD A
+    f32, f64 = torch.float32, torch.float64
+    for shape, dtype in ([((1, 3, 256, 256), f32), ((1, 3, 512, 512), f32)]
+                         + [(s, f32) for s in odd]
+                         + [(s, t) for s in BDOT_LP_ROWS for t in (f32, f64)]):
+        a = torch.from_numpy(rng.randn(*shape)).to(device=dev, dtype=dtype)
+        # <p, q> > 0, as <p, A p> for SPD A
+        q = 1.5 * a + 0.1 * torch.from_numpy(rng.randn(*shape)).to(device=dev, dtype=dtype)
         got, again = kernels.bdot(a, q), kernels.bdot(a, q)
         ref = kernels.bdot_plain(a, q)
         exact = (a.double() * q.double()).flatten(1).sum(1)
         torch.cuda.synchronize()
         rel = float(((got - ref).abs() / ref.abs()).max())
-        bdot_cases.append({"shape": list(shape), "max_rel_err": rel,
-                           "max_abs_err": float((got - ref).abs().max()),
+        tol = REDUCE_REL_TOL if dtype == f32 else REDUCE_REL_TOL_F64
+        bdot_cases.append({"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                           "max_rel_err": rel, "max_abs_err": float((got - ref).abs().max()),
                            "kernel_rel_gap_to_float64": float(((got - exact).abs() / exact.abs()).max()),
                            "plain_rel_gap_to_float64": float(((ref - exact).abs() / exact.abs()).max())})
-        if not rel <= REDUCE_REL_TOL:
-            raise AssertionError(f"bdot {shape}: relative diff {rel} > {REDUCE_REL_TOL}")
+        if not (rel <= tol and got.dtype == dtype):
+            raise AssertionError(f"bdot {shape} {dtype}: relative diff {rel} > {tol}")
         if not torch.equal(got, again):
-            raise AssertionError(f"bdot {shape}: two calls gave different bits")
+            raise AssertionError(f"bdot {shape} {dtype}: two calls gave different bits")
 
     tail_cases = []
     for shape in [(1, 3, 256, 256), (1, 3, 512, 512)] + odd + ["clamps"]:
@@ -489,15 +518,20 @@ def phase_check_solver_kernels(kernels, dev):
     x, r, pp = (_randn(rng, (1, 3, 256, 256), dev) for _ in range(3))
     Ap = 1.5 * pp + 0.1 * _randn(rng, (1, 3, 256, 256), dev)
     rs = kernels.bdot_plain(r, r)
-    n = x.numel()
-    b_dot = bound(8 * n + 4, 2 * n)
     dot = {"name": "bdot", "route": "cuda", "source": "dprox_tpu_torch/csrc/bdot.cu",
            "replaces": "dprox_tpu/ops/pallas_kernels.py:227",
-           "max_abs_err": bdot_cases[0]["max_abs_err"],
-           "ms": time_ms(lambda: kernels.bdot(pp, Ap)),
-           "plain_ms": time_ms(lambda: kernels.bdot_plain(pp, Ap)),
-           "bound_ms": b_dot[0], "bound_by": b_dot[1],
-           "library_ms": time_ms(lambda: torch.linalg.vecdot(pp.flatten(1), Ap.flatten(1)))}
+           **bdot_timing(kernels, pp, Ap, bdot_cases[0]["max_abs_err"]),
+           "at_shapes": []}
+    # every other row a path hands bdot, beside torch.linalg.vecdot and the bound
+    for shape, dtype in [((1, 8208), f32), ((1, 32784), f32), ((1, 8208), f64),
+                         ((1, 520), f64), ((8, 520), f32)]:
+        a = torch.from_numpy(rng.randn(*shape)).to(device=dev, dtype=dtype)
+        q = 1.5 * a + 0.1 * torch.from_numpy(rng.randn(*shape)).to(device=dev, dtype=dtype)
+        err = next(c["max_abs_err"] for c in bdot_cases
+                   if c["shape"] == list(shape) and c["dtype"] == str(dtype).replace("torch.", ""))
+        dot["at_shapes"].append({"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                                 **bdot_timing(kernels, a, q, err)})
+    n = x.numel()
     b_tail = bound(28 * n + 8, 10 * n)
     tail = {"name": "fused_cg_tail", "route": "cuda",
             "source": "dprox_tpu_torch/csrc/cg_tail.cu",
@@ -519,8 +553,8 @@ def phase_check_solver_kernels(kernels, dev):
           "bdot_cases": bdot_cases, "cg_tail_cases": tail_cases,
           "timing_shapes": {"fused_admm_update": [1, 3, 512, 512], "bdot": [1, 3, 256, 256],
                             "fused_cg_tail": [1, 3, 256, 256]},
-          "timing": "CUDA-graph replay, median of 30 x 10 calls (the CG tail is three "
-                    "ordinary launches and one graph captures them)",
+          "timing": "CUDA-graph replay, median of 30 x 10 calls (bdot's other rows in "
+                    "its at_shapes, with eager_ms)",
           "measured": [admm, dot, tail], "other_shapes": extra,
           "eager_ms_with_host_overhead": eager_ms})
     return [admm, dot, tail]
@@ -1012,6 +1046,69 @@ def phase_check_bsr(kernels, dev):
     return [bsr, csr]
 
 
+def phase_kernels_per_call(kernels, dev):
+    """Device kernels per call of each wrapper, from a torch.profiler trace
+    of ten calls at a path's shape. bdot's and fused_cg_tail's must match
+    their design: one block a row at path C's [1, 8208] (1), blocks spread
+    over the card and a dependent finish at 1x3x256x256 (2), and the CG
+    tail's three dependent launches (3)."""
+    from collections import Counter
+
+    import scipy.sparse as sp
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dprox_tpu_torch.algo.lp import BSRMat
+
+    rng = np.random.RandomState(4)
+    y = torch.from_numpy(rng.rand(3, 256, 256).astype(np.float32)).to(dev)
+    lam = torch.full((1,), 0.05, device=dev)
+    F = torch.from_numpy((rng.randn(1, 3, 256, 256) + 1j * rng.randn(1, 3, 256, 256))
+                         .astype(np.complex64)).to(dev)
+    one = torch.ones((), device=dev)
+    x, r, pp, Ap = (_randn(rng, (1, 3, 256, 256), dev) for _ in range(4))
+    rs = kernels.bdot_plain(r, r)
+    v = _randn(rng, (1, 8208), dev)
+    A = sp.random(1000, 700, density=0.02, random_state=rng, format="csr")
+    op = BSRMat(A, dtype=torch.float32, device=dev)
+    x700 = torch.from_numpy(rng.rand(700).astype(np.float32)).to(dev)
+    xb = torch.zeros(op.Nb * op.tiles.shape[2], device=dev)
+    xb[:700] = x700
+    xb = xb.reshape(op.Nb, -1)
+    calls = {
+        "tv_denoise_chw": lambda: kernels.tv_denoise_chw(y, lam, 5),
+        "freq_divide": lambda: kernels.freq_divide(F, one, one),
+        "fused_admm_update": lambda: kernels.fused_admm_update(x, r, lam, "nonneg"),
+        "bdot": lambda: kernels.bdot(v, v),
+        "bdot 1x3x256x256": lambda: kernels.bdot(pp, Ap),
+        "fused_cg_tail": lambda: kernels.fused_cg_tail(x, r, pp, Ap, rs),
+        "csr_matvec": lambda: kernels.csr_matvec(*op.csr[:3], x700, op.csr[3]),
+        "bsr_matvec": lambda: kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids, xb, op.Mb,
+                                                 row_ptr=op.row_ptr),
+    }
+    per_call, seen = {}, 0
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset")))
+        seen += sum(names.values())
+        per_call[name] = {"kernels_per_call": sum(names.values()) / 10,
+                          "names": {k: c / 10 for k, c in names.items()}}
+    emit({"phase": "kernels_per_call", "calls": 10,
+          "trace": "torch.profiler, CUDA activity" if seen else
+                   "the profiler recorded no device events: kernels per call not measured",
+          "per_call": per_call if seen else None})
+    if seen:
+        for name, want in (("bdot", 1), ("bdot 1x3x256x256", 2), ("fused_cg_tail", 3)):
+            if per_call[name]["kernels_per_call"] != want:
+                raise AssertionError(f"{name}: {per_call[name]} device kernels a call, not {want}")
+
+
 def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
     """Objective and feasibility of an LP solution; raises outside the gates."""
     x = x.detach().double().cpu().numpy()
@@ -1174,12 +1271,14 @@ def phase_lp(kernels, dev, card):
     h = 1e-6
     fd = (loss_at(1.0 + h) - loss_at(1.0 - h)) / (2 * h)
     ad = loss_at(1.0, grad=True)
+    kernels.reset_launches()
     t0 = time.perf_counter()
     x64, res64 = s64.solve_fused(p64, max_iters=20000)
     torch.cuda.synchronize()
     f64_s = time.perf_counter() - t0
+    f64_launches = kernels.launch_counts()
     f64 = _lp_gates("lp float64", *data8, x64, _highs(*data8), res64)
-    f64["seconds"] = f64_s
+    f64.update(seconds=f64_s, launches=f64_launches)
 
     # the chunked solve at the 2048-period instance: seconds per iteration only
     cb, A_ubb, A_eqb, b_ubb, b_eqb = synthetic_cep_model(2048, 16)
@@ -1196,6 +1295,7 @@ def phase_lp(kernels, dev, card):
            "s_per_iteration": big_s / 200,
            "pcg_iterations": (big_launches["bdot"] - 200) // 2,
            "route": pb.A.route, "csr_matvec_launches": big_launches["csr_matvec"],
+           "bdot_launches": big_launches["bdot"],
            "bsr_matvec_launches": big_launches["bsr_matvec"],
            "finite": bool(torch.isfinite(xb).all())}
 
@@ -1313,6 +1413,7 @@ def main() -> int:
     phase_build(kernels)
     measured = (phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
                 + phase_check_bsr(kernels, dev))
+    phase_kernels_per_call(kernels, dev)
     solver, b, launches = phase_main(dp, kernels, dev)
     phase_marginal(dp, solver, b, card)
     del solver, b

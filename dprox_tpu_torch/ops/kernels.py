@@ -8,10 +8,13 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
   frequency-diagonal divide of the x-update;
 * ``fused_admm_update`` (csrc/fused_admm_update.cu) <- ``fused_admm_update``:
   the nonneg / soft-threshold prox and the ADMM dual update in one pass;
-* ``bdot`` (csrc/bdot.cu) <- ``bdot_pallas``: per-batch dot products,
+* ``bdot`` (csrc/bdot.cu) <- ``bdot_pallas``: per-batch dot products, a
+  short row in one block and one launch, a long row over blocks spread
+  over the card and a dependent launch that adds their partial sums;
   deterministic;
 * ``fused_cg_tail`` (csrc/cg_tail.cu) <- ``fused_cg_tail``: one CG
-  iteration minus the matvec (both reductions and the three axpys);
+  iteration minus the matvec (both reductions and the three axpys) in
+  three dependent launches;
 * ``bsr_matvec`` (csrc/bsr_matvec.cu) and ``csr_matvec``
   (csrc/csr_matvec.cu) <- ``bsr_matvec``: the sparse matrix-vector product
   of the LP path, float32 and float64, over dense tiles or over compressed
@@ -68,12 +71,12 @@ _SIGNATURES = {
         "dprox_fused_admm_update": [_P, _P, _P, _I, _I, _P, _P, _LL, _LL, _P],
     },
     "bdot": {
-        "dprox_bdot": [_P, _P, _P, _P, _I, _LL, _P],
-        "dprox_bdot_f64": [_P, _P, _P, _P, _I, _LL, _P],
-        "dprox_bdot_workspace": [_I, _LL],
+        "dprox_bdot": [_P, _P, _P, _P, _I, _LL, _I, _P],
+        "dprox_bdot_f64": [_P, _P, _P, _P, _I, _LL, _I, _P],
+        "dprox_bdot_workspace": [_I, _LL, _I],
     },
     "cg_tail": {
-        "dprox_cg_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _P],
+        "dprox_cg_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
         "dprox_cg_tail_workspace": [_I, _LL],
     },
     "bsr_matvec": {
@@ -136,7 +139,7 @@ def build(names=None) -> dict:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, path)
-        ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]
+        ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln or "spill" in ln]
         report[name] = {"seconds": seconds, "cached": False, "ptxas": ptxas}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -388,13 +391,13 @@ def bdot_plain(p, q):
 def _bdot_launch(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     B, D = _rows((p, q), ("p", "q"), "bdot", (torch.float32, torch.float64))
     lib = _lib("bdot")
-    out = torch.empty(B, dtype=p.dtype, device=p.device)
-    work = torch.empty(lib.dprox_bdot_workspace(B, D), dtype=p.dtype, device=p.device)
     entry = lib.dprox_bdot if p.dtype == torch.float32 else lib.dprox_bdot_f64
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = entry(p.data_ptr(), q.data_ptr(), out.data_ptr(), work.data_ptr(),
-                    B, D, stream)
+    out = torch.empty(B, dtype=p.dtype, device=p.device)
+    n_work = lib.dprox_bdot_workspace(B, D, p.element_size())
+    work = torch.empty(n_work, dtype=p.dtype, device=p.device) if n_work > 0 else None
+    err = entry(p.data_ptr(), q.data_ptr(), out.data_ptr(),
+                work.data_ptr() if n_work > 0 else None, B, D, p.device.index,
+                torch.cuda.current_stream(p.device).cuda_stream)
     _check(err, "bdot", "bdot")
     bdot.launches += 1
     return out
@@ -456,9 +459,9 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     ``p' = r' + beta p``; returns ``(x', r', p', rs')`` as new tensors.
 
     x, r, p, Ap: contiguous float32 [B, ...] of one shape; rs: float32 [B].
-    The scalars stay on the device and the sums have a fixed order. (The
-    kernel itself may also write x', r', p' over x, r, p; this wrapper
-    does not.)
+    The scalars stay on the device and the sums have a fixed order. The
+    outputs are new tensors: ``cg_pallas`` starts with p aliasing r, so an
+    update in place would be wrong.
     """
     if _on_cpu(x):
         return fused_cg_tail_plain(x, r, p, Ap, rs)
@@ -470,14 +473,13 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     lib = _lib("cg_tail")
     x_out, r_out, p_out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     rs_out = torch.empty_like(rs)
-    work = torch.empty(lib.dprox_cg_tail_workspace(B, D), dtype=torch.float32,
-                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dprox_cg_tail(x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
-                                rs.data_ptr(), x_out.data_ptr(), r_out.data_ptr(),
-                                p_out.data_ptr(), rs_out.data_ptr(), work.data_ptr(),
-                                B, D, stream)
+    n_work = lib.dprox_cg_tail_workspace(B, D)
+    work = torch.empty(n_work, dtype=torch.float32, device=x.device) if n_work > 0 else None
+    err = lib.dprox_cg_tail(
+        x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(), rs.data_ptr(),
+        x_out.data_ptr(), r_out.data_ptr(), p_out.data_ptr(), rs_out.data_ptr(),
+        work.data_ptr() if n_work > 0 else None, B, D, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _check(err, "cg_tail", "fused_cg_tail")
     fused_cg_tail.launches += 1
     return x_out, r_out, p_out, rs_out

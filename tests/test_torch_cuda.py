@@ -177,6 +177,111 @@ def test_fused_cg_tail_clamps_and_batch_independence(cuda):
     assert float(got[2][1].abs().max()) == 0.0
 
 
+def _replayed(fn):
+    """``fn()``'s outputs after one capture of it in a CUDA graph and one
+    replay (after a warm-up call outside the capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose base is one element past a 16-byte
+    boundary (the kernels then read element by element)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+# path C's rows (8208 and 32784 LP variables), the float64 and consensus
+# LP rows, one element, a row shorter than a group, the longest float32
+# row of one block and the shortest of two launches, and a ragged row over
+# many blocks
+BDOT_SHAPES = [(1, 8208), (1, 32784), (1, 520), (8, 520), (1, 1), (1, 7), (2, 4097),
+               (2, 10240), (2, 10241), (3, 50001)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", BDOT_SHAPES)
+def test_bdot_rows_alone_unaligned_and_replayed_give_the_same_bits(cuda, shape, dtype, tol):
+    """Within 1e-5 (float32) / 1e-12 (float64) of sum |p q| of the plain
+    version; one counted launch a call; each row equals that row run alone, an
+    unaligned copy of the operands, a second call and a CUDA-graph replay
+    bit for bit (the summation order depends only on D)."""
+    rng = np.random.RandomState(9)
+    p, q = (torch.from_numpy(rng.randn(*shape)).to(device=cuda, dtype=dtype) for _ in range(2))
+    before = kernels.bdot.launches
+    got = kernels.bdot(p, q)
+    assert kernels.bdot.launches == before + 1
+    ref = kernels.bdot_plain(p, q)
+    scale = (p * q).abs().flatten(1).sum(1).double()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (shape[0],)
+    assert bool(((got.double() - ref.double()).abs() <= tol * scale).all())
+    assert torch.equal(got, kernels.bdot(p, q))
+    assert torch.equal(got, kernels.bdot(_unaligned(p), _unaligned(q)))
+    assert torch.equal(got, _replayed(lambda: kernels.bdot(p, q)))
+    for i in range(shape[0]):
+        assert torch.equal(got[i:i + 1], kernels.bdot(p[i:i + 1], q[i:i + 1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bdot_takes_more_rows_than_a_grid_dimension_of_65535(cuda, dtype):
+    """70 000 rows of 8: the rows lie along grid x."""
+    rng = np.random.RandomState(10)
+    p, q = (torch.from_numpy(rng.randn(70000, 8)).to(device=cuda, dtype=dtype)
+            for _ in range(2))
+    got = kernels.bdot(p, q)
+    exact = (p.double() * q.double()).sum(1)
+    scale = (p * q).abs().sum(1).double()
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert got.shape == (70000,) and bool(((got.double() - exact).abs() <= tol * scale).all())
+    assert torch.equal(got[69999:], kernels.bdot(p[69999:], q[69999:]))
+
+
+# 1x3x256x256 (path B), 1x3x512x512 (a thread takes more groups than it
+# loads at once), two blocks with a ragged last group, one element, and
+# 70 000 rows along grid x
+TAIL_SHAPES = [(1, 3, 256, 256), (1, 3, 512, 512), (2, 12290), (3, 1), (70000, 8)]
+
+
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+def test_fused_cg_tail_unaligned_and_replayed_give_the_same_bits(cuda, shape):
+    """Within 1e-5 of each output's largest value of the plain version; one
+    counted call; an unaligned copy of every operand, a second call and a
+    CUDA-graph replay give the same bits; the last row equals itself run
+    alone."""
+    rng = np.random.RandomState(11)
+    x, r, p = (_randn(rng, shape, cuda) for _ in range(3))
+    Ap = p * 1.5 + 0.1 * _randn(rng, shape, cuda)
+    rs = kernels.bdot_plain(r, r)
+    before = kernels.fused_cg_tail.launches
+    got = kernels.fused_cg_tail(x, r, p, Ap, rs)
+    assert kernels.fused_cg_tail.launches == before + 1
+    ref = kernels.fused_cg_tail_plain(x, r, p, Ap, rs)
+    again = kernels.fused_cg_tail(x, r, p, Ap, rs)
+    shifted = kernels.fused_cg_tail(*(_unaligned(t) for t in (x, r, p, Ap)), rs)
+    replayed = _replayed(lambda: kernels.fused_cg_tail(x, r, p, Ap, rs))
+    alone = kernels.fused_cg_tail(x[-1:], r[-1:], p[-1:], Ap[-1:], rs[-1:])
+    torch.cuda.synchronize()
+    for g, e, a, s, rp, al in zip(got, ref, again, shifted, replayed, alone):
+        assert g.shape == e.shape and bool(torch.isfinite(g).all())
+        assert float((g - e).abs().max()) <= 1e-5 * float(e.abs().max())
+        assert torch.equal(g, a) and torch.equal(g, s) and torch.equal(g, rp)
+        assert torch.equal(g[-1:], al)
+
+
 def test_solver_kernels_raise_on_what_they_do_not_take(cuda):
     a = torch.rand(2, 3, 8, 8, device=cuda)
     lam = torch.full((1,), 0.1, device=cuda)

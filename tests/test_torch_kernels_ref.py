@@ -8,6 +8,7 @@ inputs.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from dprox_tpu.models.tv import tv_denoising_chw as jax_tv
@@ -101,18 +102,23 @@ def test_fused_admm_update_plain_takes_lam_per_batch_element():
         assert torch.equal(v[i:i + 1], vi) and torch.equal(u_new[i:i + 1], ui)
 
 
-def test_bdot_plain_matches_jax():
+@pytest.mark.parametrize("shape,dtype", [((4, 3, 8, 128), np.float32),
+                                         ((1, 8208), np.float32), ((1, 8208), np.float64)])
+def test_bdot_plain_matches_jax(shape, dtype):
     """atol 1e-3 at 4x3x8x128 as in tests/test_pallas_ops.py, and relative
-    1e-6 of sum |p q| (float32 sums in two orders)."""
+    1e-6 (float32, sums in two orders) / 1e-12 (float64) of sum |p q|; also
+    at path C's row of 8208 LP variables, in float32 and, with JAX's x64 on,
+    float64."""
     rng = np.random.RandomState(2)
-    p = rng.randn(4, 3, 8, 128).astype(np.float32)
-    q = rng.randn(4, 3, 8, 128).astype(np.float32)
+    p = rng.randn(*shape).astype(dtype)
+    q = rng.randn(*shape).astype(dtype)
     got = kernels.bdot(torch.from_numpy(p), torch.from_numpy(q)).numpy()
-    ref = np.asarray(bdot_pallas(jnp.asarray(p), jnp.asarray(q)))
-    assert got.shape == (4,)
+    with jax.enable_x64(bool(dtype == np.float64)):
+        ref = np.asarray(bdot_pallas(jnp.asarray(p), jnp.asarray(q)))
+    assert got.shape == (shape[0],) and got.dtype == ref.dtype == dtype
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
-    scale = np.abs(p * q).reshape(4, -1).sum(1)
-    assert np.all(np.abs(got - ref) <= 1e-6 * scale)
+    scale = np.abs(p * q).reshape(shape[0], -1).sum(1)
+    assert np.all(np.abs(got - ref) <= (1e-6 if dtype == np.float32 else 1e-12) * scale)
 
 
 def test_fused_cg_tail_plain_matches_pallas_interpret():
