@@ -10,7 +10,8 @@ exits non-zero):
 
 1. build    - compile the Hopper kernels from csrc/ with nvcc.
 2. check    - hold each kernel against its plain PyTorch version on the
-              card, at the main path's shapes and at odd sizes, and time
+              card, at the main path's shapes and at odd sizes (the TV
+              kernel bit for bit, in each of its windows), and time
               kernel, plain version and library call with CUDA events
               (three lines: check, check_solver_kernels, check_bsr; the
               last holds both routes of the LP operator, dense tiles and
@@ -35,6 +36,11 @@ exits non-zero):
               the CPU, launch counts (the inner CG iterations follow from
               them), marginal outer iterations/s (4 -> 24), and
               what the per-iteration stop test's host read costs.
+   grad     - gradients through the kernels' autograd Functions at
+              1x3x256x256: d loss / d (rhos, lams) of 5-iteration admm
+              solves with norm1(grad(x)) and with the TV prior, and d loss
+              / d (rho, b) of cg_pallas, each against the same computation
+              on the CPU (plain versions).
 7. lp       - the energy-planning LP synthetic_cep_model(512, 16) (16912 x
               8208 constraint matrix, 324 dense 128 x 128 tiles) in float32
               through LPProblem / LPSolverADMM.solve_fused: convergence,
@@ -142,10 +148,24 @@ CONSENSUS_OBJECTIVE_TOL = 5e-3  # against the extensive form's HiGHS optimum
 SPMV_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 SPMV_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
 
-TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32
+TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32 (and bit-equal)
+# (shape, iterations, lam per plane): the paths' shapes, odd sizes, and
+# sizes on both sides of the TV kernel's windows (128 columns; 32 and
+# 96 rows), 1..44 iterations
+TV_CASES = [((3, 512, 512), 10, False), ((3, 256, 256), 5, False), ((1, 37, 53), 10, False),
+            ((2, 130, 257), 10, True), ((3, 512, 512), 5, False), ((1, 31, 127), 1, False),
+            ((2, 32, 128), 5, True), ((1, 33, 129), 10, False), ((2, 63, 257), 10, True),
+            ((1, 64, 128), 31, False), ((2, 65, 129), 44, True), ((1, 95, 127), 5, False),
+            ((2, 96, 257), 10, True), ((1, 97, 128), 44, False)]
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
 REDUCE_REL_TOL = 1e-5  # bdot and the CG tail: float32 sums in another order
 REDUCE_REL_TOL_F64 = 1e-12  # bdot in float64
+# gradients of an unrolled solve on the card against the CPU: cuFFT rounds
+# differently from the CPU's FFT, and a pixel within that rounding of a
+# threshold (|w| = lam in the soft threshold, |z| = lam / 2 in TV's clip)
+# takes the other branch, which moves the gradient w.r.t. lams by one
+# pixel's share (4.6e-4 and 6.5e-4 of its largest entry on an H100)
+GRAD_REL_TOL = 3e-3
 BDOT_LP_ROWS = [(1, 8208), (1, 32784), (1, 520), (8, 520)]  # the LP paths' bdot rows
 MAIN_ITERS = 48
 NONNEG_CAP = 512
@@ -213,22 +233,29 @@ def phase_check(kernels, dev):
     """Kernel vs plain on the card; returns per-kernel measurements."""
     rng = np.random.RandomState(0)
     tv_cases = []
-    # the flagship's shape (10 iterations), odd sizes, and the joint paths'
-    # shape: deep_prior(x, "tv") at 1x3x256x256 runs 5 iterations with one lam
-    for shape, it, per_plane in [((3, 512, 512), 10, False), ((1, 37, 53), 10, False),
-                                 ((2, 130, 257), 10, True), ((3, 512, 512), 5, False),
-                                 ((3, 256, 256), 5, False)]:
+    # the flagship's shape (10 iterations), the joint paths' shape
+    # (deep_prior(x, "tv") at 1x3x256x256 runs 5 iterations with one lam),
+    # odd sizes, widths and heights on both sides of the kernel's windows
+    # (128 columns; 32, 64, 96 rows), per-plane lam and 1..44 iterations:
+    # bit for bit against the plain version in every window the count fits
+    for shape, it, per_plane in TV_CASES:
         y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
         lam = torch.from_numpy(
             (0.02 + 0.1 * rng.rand(shape[0] if per_plane else 1)).astype(np.float32)).to(dev)
         got = kernels.tv_denoise_chw(y, lam, it)
         ref = kernels.tv_denoise_chw_plain(y, lam, it)
+        fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS) if warps * rows > 2 * it]
+        same = [torch.equal(kernels._tv_launch(y, lam, it, i), ref) for i in fits]
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         tv_cases.append({"shape": list(shape), "iterations": it, "lam_per_plane": per_plane,
-                         "max_abs_err": err})
-        if not err <= TV_TOL:
-            raise AssertionError(f"tv_denoise_chw {shape} it={it}: max|diff| {err} > {TV_TOL}")
+                         "window": kernels.TV_WINDOWS[kernels.tv_window(*shape, it)],
+                         "max_abs_err": err, "bit_equal": torch.equal(got, ref),
+                         "every_window_bit_equal": all(same)})
+        if not (err <= TV_TOL and torch.equal(got, ref) and all(same)):
+            raise AssertionError(f"tv_denoise_chw {shape} it={it}: max|diff| {err} (limit "
+                                 f"{TV_TOL}), not bit-equal to the plain version, or a "
+                                 f"window differs: {dict(zip(fits, same))}")
 
     # the flagship's divide operands: |OTF|^2 of its PSF and one rho
     from dprox_tpu_torch.linop import Variable, conv
@@ -258,27 +285,38 @@ def phase_check(kernels, dev):
         if B == 1 and not strided:
             main_div = (F, diag, rho, err)
 
-    # timings at the main path's shapes
-    y = torch.from_numpy(rng.rand(3, 512, 512).astype(np.float32)).to(dev)
+    # timings at the main path's shapes, and at the joint paths': the
+    # window the kernel picks, and every window the count fits
     lam = torch.full((1,), 0.05, device=dev)
-    n = y.numel()
-    tv_bound = bound(2 * 4 * n + 4, n * (16 * (10 - 1) + 6))
+    tv_at = {}
+    for shape, it in ((3, 512, 512), 10), ((3, 256, 256), 5):
+        y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+        n = y.numel()
+        b_tv = bound(2 * 4 * n + 4, n * (16 * (it - 1) + 6))
+        window = kernels.tv_window(*shape, it)
+        warps, rows = kernels.TV_WINDOWS[window]
+        out_rows, out_cols = warps * rows - 2 * it, 128 - 2 * it
+        tv_at[shape] = {
+            "shape": list(shape), "iterations": it,
+            "max_abs_err": next(c["max_abs_err"] for c in tv_cases
+                                if c["shape"] == list(shape) and c["iterations"] == it),
+            "ms": time_ms(lambda: kernels.tv_denoise_chw(y, lam, it)),
+            "eager_ms": time_ms(lambda: kernels.tv_denoise_chw(y, lam, it), graph=False),
+            "plain_ms": time_ms(lambda: kernels.tv_denoise_chw_plain(y, lam, it), 20, 2),
+            "bound_ms": b_tv[0], "bound_by": b_tv[1],
+            "window": [128, warps * rows],
+            "recompute": 128 * warps * rows / (out_rows * out_cols),
+            "blocks": shape[0] * -(-shape[1] // out_rows) * -(-shape[2] // out_cols),
+            "ms_by_window": {f"128x{w_ * r_}": time_ms(lambda i=i: kernels._tv_launch(y, lam, it, i))
+                             for i, (w_, r_) in enumerate(kernels.TV_WINDOWS)
+                             if w_ * r_ > 2 * it}}
+    main_tv = tv_at[(3, 512, 512)]
     tv = {"name": "tv_denoise_chw", "route": "cuda",
           "source": "dprox_tpu_torch/csrc/tv_denoise.cu",
           "replaces": "dprox_tpu/ops/pallas_kernels.py:388",
-          "max_abs_err": max(c["max_abs_err"] for c in tv_cases),
-          "ms": time_ms(lambda: kernels.tv_denoise_chw(y, lam, 10)),
-          "plain_ms": time_ms(lambda: kernels.tv_denoise_chw_plain(y, lam, 10), 20, 2),
-          "bound_ms": tv_bound[0], "bound_by": tv_bound[1], "library_ms": None}
-    # the same at the joint paths' shape: 3x256x256, 5 iterations
-    yj = torch.from_numpy(rng.rand(3, 256, 256).astype(np.float32)).to(dev)
-    tv["at_joint_shape"] = {
-        "shape": [3, 256, 256], "iterations": 5,
-        "max_abs_err": next(c["max_abs_err"] for c in tv_cases if c["shape"] == [3, 256, 256]),
-        "ms": time_ms(lambda: kernels.tv_denoise_chw(yj, lam, 5)),
-        "plain_ms": time_ms(lambda: kernels.tv_denoise_chw_plain(yj, lam, 5), 20, 2),
-        "bound_ms": bound(2 * 4 * yj.numel() + 4, yj.numel() * (16 * (5 - 1) + 6))[0],
-        "bound_by": bound(2 * 4 * yj.numel() + 4, yj.numel() * (16 * (5 - 1) + 6))[1]}
+          **{k: main_tv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+          "library_ms": None, "max_abs_err_all_cases": max(c["max_abs_err"] for c in tv_cases),
+          "at_main_shape": main_tv, "at_joint_shape": tv_at[(3, 256, 256)]}
     F, diag, rho, err = main_div
     n = F.numel()
     div_bound = bound(8 * n + 4 * diag.numel() + 4 * rho.numel() + 8 * n, 6 * n)
@@ -290,7 +328,7 @@ def phase_check(kernels, dev):
            "plain_ms": time_ms(lambda: kernels.freq_divide_plain(F, diag, rho)),
            "bound_ms": div_bound[0], "bound_by": div_bound[1],
            "library_ms": time_ms(lambda: (F + 1e-7) / (diag + rho + 1e-7))}
-    eager_ms = {"tv_denoise_chw": time_ms(lambda: kernels.tv_denoise_chw(y, lam, 10), graph=False),
+    eager_ms = {"tv_denoise_chw": main_tv["eager_ms"],
                 "freq_divide": time_ms(lambda: kernels.freq_divide(F, diag, rho), graph=False)}
     emit({"phase": "check", "tv_cases": tv_cases, "divide_cases": div_cases,
           "timing_shapes": {"tv_denoise_chw": [3, 512, 512, 10],
@@ -767,6 +805,85 @@ def phase_joint(dp, kernels, dev, card):
     return launches_by_config
 
 
+def phase_grad(dp, kernels, dev, card):
+    """Gradients through the kernels' autograd Functions on the card: d loss
+    / d (rhos, lams) of a short unrolled admm solve at 1x3x256x256 with
+    norm1(grad(x)) (freq_divide, fused_admm_update) and with the TV prior
+    (freq_divide, tv_denoise_chw), and d loss / d (rho, b) of cg_pallas
+    called directly (fused_cg_tail, bdot), each against the same
+    computation with device="cpu" (the plain versions)."""
+    from dprox_tpu_torch.linalg import solvers
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+
+    rhos0 = [0.05, 0.04, 0.06, 0.05, 0.03]
+    lams0 = [0.01, 0.02, 0.015, 0.01, 0.012]
+
+    def admm_grads(device, prior):
+        psf = point_spread_function(15, 5)
+        img, b = observation(256, psf, False, device)
+        x = dp.Variable()
+        reg = dp.norm1(dp.grad(x)) if prior == "norm1" else dp.deep_prior(x, "tv")
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b), reg], "admm", device=device)
+        rhos = torch.tensor(rhos0, device=device, requires_grad=True)
+        lams = torch.tensor(lams0, device=device, requires_grad=True)
+        out = solver.solve(x0=b, max_iter=len(rhos0), rhos=rhos, lams=lams)
+        loss = torch.mean((out - img) ** 2)
+        return out.grad_fn is not None, torch.autograd.grad(loss, (rhos, lams))
+
+    def cg_grads(device):
+        psf = point_spread_function(9, 2)
+        img, b = observation(256, psf, True, device)
+        init = dp.utils.demosaic_from_mosaiced(b)
+        x = dp.Variable()
+        data = dp.sum_squares(dp.mosaic(dp.conv(x, psf)) - dp.Placeholder("b"))
+        solver = dp.compile(data + dp.deep_prior(x, "tv"), "admm", device=device,
+                            linear_solve_config=dp.LinearSolveConfig(max_iters=40,
+                                                                     solver_type="cg_pallas"))
+        fn = solver.omega_fns[0]
+        rho = torch.tensor(0.3, device=device, requires_grad=True)
+        b = b.clone().requires_grad_()
+        A = lambda v: fn.dag_adjoint(fn.dag_forward(v, {"b": b}), {"b": b}) + rho * v
+        rhs = fn.dag_adjoint(b, {"b": b}) + rho * init
+        out = solvers.cg_pallas(A, rhs, rtol=0.0, max_iters=10)
+        loss = torch.mean((out - img) ** 2)
+        return out.grad_fn is not None, torch.autograd.grad(loss, (rho, b))
+
+    runs = {"admm_norm1": (lambda d: admm_grads(d, "norm1"), ("rhos", "lams"),
+                           ("freq_divide", "fused_admm_update")),
+            "admm_tv": (lambda d: admm_grads(d, "tv"), ("rhos", "lams"),
+                        ("freq_divide", "tv_denoise_chw")),
+            "cg_pallas": (cg_grads, ("rho", "b"), ("fused_cg_tail", "bdot"))}
+    results, failed = {}, []
+    for name, (run, wrt, kernels_used) in runs.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        has_graph, got = run(dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        _, ref = run("cpu")
+        rel = {w: float((g.cpu().double() - r.double()).abs().max()
+                        / r.double().abs().max().clamp(min=1e-300))
+               for w, g, r in zip(wrt, got, ref)}
+        results[name] = {"wrt": list(wrt), "max_rel_err_vs_cpu": rel,
+                         "grad_abs_sum": {w: float(g.abs().sum()) for w, g in zip(wrt, got)},
+                         "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                         "output_has_grad_fn": has_graph, "seconds": seconds,
+                         "launches": {k: launches[k] for k in kernels_used}}
+        r = results[name]
+        if not (has_graph and r["finite"] and all(v > 0 for v in r["grad_abs_sum"].values())
+                and all(v <= GRAD_REL_TOL for v in rel.values())
+                and all(v > 0 for v in r["launches"].values())):
+            failed.append(name)
+    emit({"phase": "grad", "config": "1x3x256x256; admm, 5 iterations, loss mean((x - img)^2) "
+          "w.r.t. the rhos and lams schedules; cg_pallas 10 iterations (rtol 0) on the joint "
+          "operator K^T K + rho, w.r.t. rho and b", "tolerance": GRAD_REL_TOL,
+          "of": "max |g_cuda - g_cpu| / max |g_cpu|", "runs": results, "card": card})
+    if failed:
+        raise AssertionError(f"grad: {failed} missing, zero, non-finite, more than "
+                             f"{GRAD_REL_TOL} off the CPU, or launched no kernel")
+
+
 def equilibrated_cep(n_periods, n_tech):
     """The Ruiz-equilibrated stacked constraint matrix [A_ub; A_eq; I] of
     synthetic_cep_model(n_periods, n_tech) as LPProblem builds it (scipy CSR,
@@ -1062,6 +1179,7 @@ def phase_kernels_per_call(kernels, dev):
 
     rng = np.random.RandomState(4)
     y = torch.from_numpy(rng.rand(3, 256, 256).astype(np.float32)).to(dev)
+    y512 = torch.from_numpy(rng.rand(3, 512, 512).astype(np.float32)).to(dev)
     lam = torch.full((1,), 0.05, device=dev)
     F = torch.from_numpy((rng.randn(1, 3, 256, 256) + 1j * rng.randn(1, 3, 256, 256))
                          .astype(np.complex64)).to(dev)
@@ -1077,6 +1195,7 @@ def phase_kernels_per_call(kernels, dev):
     xb = xb.reshape(op.Nb, -1)
     calls = {
         "tv_denoise_chw": lambda: kernels.tv_denoise_chw(y, lam, 5),
+        "tv_denoise_chw 3x512x512x10": lambda: kernels.tv_denoise_chw(y512, lam, 10),
         "freq_divide": lambda: kernels.freq_divide(F, one, one),
         "fused_admm_update": lambda: kernels.fused_admm_update(x, r, lam, "nonneg"),
         "bdot": lambda: kernels.bdot(v, v),
@@ -1104,7 +1223,8 @@ def phase_kernels_per_call(kernels, dev):
                    "the profiler recorded no device events: kernels per call not measured",
           "per_call": per_call if seen else None})
     if seen:
-        for name, want in (("bdot", 1), ("bdot 1x3x256x256", 2), ("fused_cg_tail", 3)):
+        for name, want in (("bdot", 1), ("bdot 1x3x256x256", 2), ("fused_cg_tail", 3),
+                           ("tv_denoise_chw", 1), ("tv_denoise_chw 3x512x512x10", 1)):
             if per_call[name]["kernels_per_call"] != want:
                 raise AssertionError(f"{name}: {per_call[name]} device kernels a call, not {want}")
 
@@ -1420,6 +1540,7 @@ def main() -> int:
     by_path = {"flagship": launches, "nonneg": phase_nonneg(dp, kernels, dev, card)}
     joint = phase_joint(dp, kernels, dev, card)
     by_path.update(joint_cg_pallas=joint["cg_pallas"], joint_default_pcg=joint["default_pcg"])
+    phase_grad(dp, kernels, dev, card)
     by_path["lp"] = phase_lp(kernels, dev, card)
     phase_lp_consensus(kernels, dev, card)
     # each kernel's count on the main-path solve that is its own; bsr_matvec

@@ -3,7 +3,7 @@
 Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
 
 * ``tv_denoise_chw`` (csrc/tv_denoise.cu) <- ``tv_denoise_chw_pallas``:
-  every TV dual-ascent iteration fused in shared memory;
+  every TV dual-ascent iteration in one launch, the state in registers;
 * ``freq_divide`` (csrc/freq_divide.cu) <- ``freq_divide``: the
   frequency-diagonal divide of the x-update;
 * ``fused_admm_update`` (csrc/fused_admm_update.cu) <- ``fused_admm_update``:
@@ -31,6 +31,17 @@ library with ``nvcc`` (all sources at once, in parallel) under
 wrapper takes the plain PyTorch version only for CPU tensors; for a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its launches in its
 ``launches`` attribute.
+
+Gradients: on CPU tensors the plain versions are differentiable as they
+are. On the card, where grad is enabled and an input requires it, each
+wrapper but the sparse products runs as a ``torch.autograd.Function``
+whose forward is the kernel (the same one launch) and whose backward is
+written in PyTorch ops, as the JAX package differentiates its jnp
+references: the closed-form VJPs ``freq_divide_vjp``,
+``fused_admm_update_vjp`` (a tie takes half, as ``jnp.maximum`` gives) and
+``fused_cg_tail_vjp``, ``bdot``'s products, and for ``tv_denoise_chw`` the
+plain version's VJP by recomputation. ``BSRMat`` gives the sparse
+products their backward (the transposed apply).
 """
 from __future__ import annotations
 
@@ -60,8 +71,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "tv_denoise": {
-        "dprox_tv_denoise_chw": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+        "dprox_tv_denoise_chw": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "dprox_tv_max_iterations": [],
+        "dprox_tv_window": [_I, _I, _I, _I],
     },
     "freq_divide": {
         "dprox_freq_divide": [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL,
@@ -207,38 +219,89 @@ def _on_cpu(t) -> bool:
 #: plain PyTorch version of ``tv_denoise_chw`` (same function and op order)
 tv_denoise_chw_plain = tv_denoising_chw
 
+#: the TV kernel's windows, (warps, rows per thread), in csrc/tv_denoise.cu's
+#: order: a window is 128 columns by warps x rows per thread rows
+TV_WINDOWS = ((8, 4), (8, 12))
+
 
 def tv_max_iterations() -> int:
-    """Largest ``iterations`` the TV kernel takes on the current card (its
-    halo window must fit in one block's shared memory)."""
+    """Largest ``iterations`` the TV kernel takes in one launch (its halo
+    of ``iterations`` cells must leave at least one output row in its
+    tallest window)."""
     return _lib("tv_denoise").dprox_tv_max_iterations()
 
 
-def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
-    """TV dual ascent on [planes, H, W] float32, every iteration fused.
+def tv_window(planes: int, H: int, W: int, iterations: int) -> int:
+    """Index into ``TV_WINDOWS`` of the window the kernel picks for this
+    call on the current card."""
+    return _lib("tv_denoise").dprox_tv_window(planes, H, W, iterations)
 
-    ``lam``: float32 device tensor holding one value or one per plane. On
-    CPU tensors this is ``models.tv.tv_denoising_chw``.
-    """
-    if _on_cpu(y0):
-        return tv_denoise_chw_plain(y0, lam, iterations)
+
+def _requires_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _tv_launch(y0, lam, iterations, window: int = -1) -> torch.Tensor:
+    """One launch of the TV kernel; ``window`` indexes ``TV_WINDOWS``, -1
+    lets the kernel pick (``tv_window``)."""
     _cuda_tensor(y0, "y0", torch.float32, y0.device, ndim=3)
     planes, H, W = y0.shape
     per_plane = _per_item_scalar(lam, "lam", planes, y0.device)
     iterations = int(iterations)
     limit = tv_max_iterations()
     if not 1 <= iterations <= limit:
-        raise ValueError(f"tv_denoise_chw kernel takes 1..{limit} iterations "
-                         f"on this card, got {iterations}")
+        raise ValueError(f"tv_denoise_chw kernel takes 1..{limit} iterations, got {iterations}")
+    if not -1 <= window < len(TV_WINDOWS):
+        raise ValueError(f"window must be -1 or an index into TV_WINDOWS, got {window}")
+    if window >= 0 and TV_WINDOWS[window][0] * TV_WINDOWS[window][1] <= 2 * iterations:
+        raise ValueError(f"window {TV_WINDOWS[window]} leaves no output row at "
+                         f"{iterations} iterations")
     out = torch.empty_like(y0)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib("tv_denoise").dprox_tv_denoise_chw(
             y0.data_ptr(), lam.data_ptr(), per_plane, out.data_ptr(),
-            planes, H, W, iterations, stream)
+            planes, H, W, iterations, window, stream)
     _check(err, "tv_denoise", "tv_denoise_chw")
     tv_denoise_chw.launches += 1
     return out
+
+
+class _TVFn(torch.autograd.Function):
+    """The kernel's forward. The backward is the VJP of the plain version,
+    recomputed from the saved inputs under autograd: the JAX package has
+    no backward kernel either (it differentiates its reference). This
+    recomputation is the one place where plain ops run on the card on a
+    kernel's behalf; a hand-written TV backward is later work."""
+
+    @staticmethod
+    def forward(ctx, y0, lam, iterations):
+        ctx.save_for_backward(y0, lam)
+        ctx.iterations = iterations
+        return _tv_launch(y0, lam, iterations)
+
+    @staticmethod
+    def backward(ctx, g):
+        y0, lam = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = tv_denoise_chw_plain(y0, lam, ctx.iterations)
+            return (*torch.autograd.grad(out, (y0, lam), g), None)
+
+
+def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
+    """TV dual ascent on [planes, H, W] float32, every iteration fused.
+
+    ``lam``: float32 device tensor holding one value or one per plane. On
+    CPU tensors this is ``models.tv.tv_denoising_chw``. On the card, with
+    grad enabled and ``y0`` or ``lam`` requiring it, the output carries the
+    plain version's gradient (``_TVFn``); the forward is the kernel either way.
+    """
+    if _on_cpu(y0):
+        return tv_denoise_chw_plain(y0, lam, iterations)
+    if _requires_grad(y0, lam):
+        return _TVFn.apply(y0, lam, int(iterations))
+    return _tv_launch(y0, lam, iterations)
 
 
 tv_denoise_chw.launches = 0
@@ -253,17 +316,25 @@ def freq_divide_plain(F, diag, rho, eps: float = 1e-7):
     return (F + eps) / (diag + rho + eps)
 
 
-def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
-                eps: float = 1e-7) -> torch.Tensor:
-    """``(F + eps) / (diag + rho + eps)`` for complex64 F [B, C, H, W].
+def _sum_to_scalar(g, s: torch.Tensor) -> torch.Tensor:
+    """``g`` ([B, ...]) reduced to a scalar operand ``s`` that holds one
+    value, or one per batch element, as the kernels read it."""
+    if s.numel() > 1:
+        return g.sum(dim=tuple(range(1, g.ndim))).reshape(s.shape)
+    return g.sum().reshape(s.shape)
 
-    F and ``diag`` (real float32, broadcastable to F) are read through
-    their strides, so a broadcast, sliced or permuted view costs no copy;
-    ``rho``: float32 device tensor holding one value or one per batch
-    element. The result is contiguous.
-    """
-    if _on_cpu(F):
-        return freq_divide_plain(F, diag, rho, eps)
+
+def freq_divide_vjp(g, diag, rho, out, eps: float = 1e-7):
+    """Gradients of ``(F + eps) / D``, ``D = diag + rho + eps`` (real), with
+    respect to F, diag and rho, given the cotangent ``g`` of the output
+    ``out``, in PyTorch's convention for complex values: ``g / D`` for F
+    and ``-Re(g conj(out)) / D`` for D, summed to each operand's shape."""
+    D = diag + _per_batch(rho, out) + eps
+    gD = -(g * out.conj()).real / D
+    return g / D, gD.sum_to_size(diag.shape), _sum_to_scalar(gD, rho)
+
+
+def _freq_divide_launch(F, diag, rho, eps):
     _cuda_tensor(F, "F", torch.complex64, F.device, ndim=4, contiguous=False)
     _cuda_tensor(diag, "diag", torch.float32, F.device, contiguous=False)
     B, C, H, W = F.shape
@@ -278,6 +349,39 @@ def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
     _check(err, "freq_divide", "freq_divide")
     freq_divide.launches += 1
     return out
+
+
+class _FreqDivideFn(torch.autograd.Function):
+    """The kernel's forward with the closed-form VJP (``freq_divide_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, F, diag, rho, eps):
+        out = _freq_divide_launch(F, diag, rho, eps)
+        ctx.save_for_backward(diag, rho, out)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        diag, rho, out = ctx.saved_tensors
+        return (*freq_divide_vjp(g, diag, rho, out, ctx.eps), None)
+
+
+def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
+                eps: float = 1e-7) -> torch.Tensor:
+    """``(F + eps) / (diag + rho + eps)`` for complex64 F [B, C, H, W].
+
+    F and ``diag`` (real float32, broadcastable to F) are read through
+    their strides, so a broadcast, sliced or permuted view costs no copy;
+    ``rho``: float32 device tensor holding one value or one per batch
+    element. The result is contiguous. On the card it is differentiable in
+    F, ``diag`` and ``rho`` (``freq_divide_vjp``) where grad is enabled.
+    """
+    if _on_cpu(F):
+        return freq_divide_plain(F, diag, rho, eps)
+    if _requires_grad(F, diag, rho):
+        return _FreqDivideFn.apply(F, diag, rho, float(eps))
+    return _freq_divide_launch(F, diag, rho, eps)
 
 
 freq_divide.launches = 0
@@ -332,33 +436,45 @@ def _per_batch(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def fused_admm_update_plain(Kx, u, lam, kind: str = "nonneg"):
-    """Plain PyTorch version of ``fused_admm_update``."""
+    """Plain PyTorch version of ``fused_admm_update``. ``torch.maximum``
+    splits the gradient evenly at a tie (w == 0, |w| == lam), as the JAX
+    package's ``jnp.maximum`` does."""
     w = Kx + u
     if kind == "nonneg":
-        v = torch.clamp(w, min=0.0)
+        v = torch.maximum(w, w.new_zeros(()))
     elif kind == "soft":
         lam = _per_batch(torch.as_tensor(lam, dtype=w.dtype, device=w.device), w)
-        v = torch.sign(w) * torch.clamp(torch.abs(w) - lam, min=0.0)
+        m = torch.abs(w) - lam
+        v = torch.sign(w) * torch.maximum(m, m.new_zeros(()))
     else:
         raise ValueError(f"kind must be 'nonneg' or 'soft', got {kind!r}")
     return v, u + Kx - v
 
 
-def fused_admm_update(Kx: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                      kind: str = "nonneg"):
-    """``v = prox(Kx + u)``, ``u' = u + Kx - v`` in one pass; returns
-    ``(v, u')`` as new tensors, equal to the unfused form exactly.
+def fused_admm_update_vjp(gv, gu, Kx, u, lam, kind: str = "nonneg"):
+    """Gradients of ``fused_admm_update`` with respect to Kx, u and (for
+    "soft") lam, given the cotangents ``gv``, ``gu`` of v and u'. With
+    ``w = Kx + u`` and ``s = dv/dw``, the cotangent reaching w is
+    ``(gv - gu) s`` and Kx and u each get ``gu + (gv - gu) s``; ``s`` is 0.5
+    at a tie (w == 0 for nonneg, |w| == lam for soft), as ``jnp.maximum``
+    gives. Written in the order autograd takes through the plain version."""
+    w = Kx + u
+    gvt = gv - gu
+    if kind == "nonneg":
+        gw = torch.where(w == 0, gvt / 2, gvt).masked_fill_(w < 0, 0.0)
+        glam = None
+    else:
+        m = torch.abs(w) - _per_batch(lam, w)
+        sg = torch.sign(w)
+        gm = gvt * sg
+        gm = torch.where(m == 0, gm / 2, gm).masked_fill_(m < 0, 0.0)
+        gw = gm * sg
+        glam = -_sum_to_scalar(gm, lam)
+    g = gu + gw
+    return g, g, glam
 
-    ``kind``: "nonneg" (``max(w, 0)``; ``lam`` is neither checked nor
-    read, as the plain version ignores it) or "soft"
-    (``sign(w) * max(|w| - lam, 0)``). Kx, u: contiguous float32 of one
-    shape, batch leading; ``lam``: float32 tensor on their device holding
-    one value or one per batch element.
-    """
-    if kind not in _ADMM_KINDS:
-        raise ValueError(f"kind must be 'nonneg' or 'soft', got {kind!r}")
-    if _on_cpu(Kx):
-        return fused_admm_update_plain(Kx, u, lam, kind)
+
+def _admm_launch(Kx, u, lam, kind):
     B, D = _rows((Kx, u), ("Kx", "u"), "fused_admm_update")
     if kind == "soft":
         per_batch, lam_ptr = _per_item_scalar(lam, "lam", B, Kx.device), lam.data_ptr()
@@ -373,6 +489,45 @@ def fused_admm_update(Kx: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
     _check(err, "fused_admm_update", "fused_admm_update")
     fused_admm_update.launches += 1
     return v, u_new
+
+
+class _AdmmUpdateFn(torch.autograd.Function):
+    """The kernel's forward with the closed-form VJP
+    (``fused_admm_update_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, Kx, u, lam, kind):
+        v, u_new = _admm_launch(Kx, u, lam, kind)
+        ctx.kind = kind
+        ctx.save_for_backward(Kx, u, lam)
+        return v, u_new
+
+    @staticmethod
+    def backward(ctx, gv, gu):
+        return (*fused_admm_update_vjp(gv, gu, *ctx.saved_tensors, ctx.kind), None)
+
+
+def fused_admm_update(Kx: torch.Tensor, u: torch.Tensor, lam,
+                      kind: str = "nonneg"):
+    """``v = prox(Kx + u)``, ``u' = u + Kx - v`` in one pass; returns
+    ``(v, u')`` as new tensors, equal to the unfused form exactly.
+
+    ``kind``: "nonneg" (``max(w, 0)``; ``lam`` is neither checked nor
+    read, as the plain version ignores it) or "soft"
+    (``sign(w) * max(|w| - lam, 0)``). Kx, u: contiguous float32 of one
+    shape, batch leading; ``lam``: float32 tensor on their device holding
+    one value or one per batch element. On the card, where grad is
+    enabled, v and u' are differentiable in Kx, u and (soft) lam
+    (``fused_admm_update_vjp``).
+    """
+    if kind not in _ADMM_KINDS:
+        raise ValueError(f"kind must be 'nonneg' or 'soft', got {kind!r}")
+    if _on_cpu(Kx):
+        return fused_admm_update_plain(Kx, u, lam, kind)
+    lam = lam if kind == "soft" else None
+    if _requires_grad(Kx, u, lam):
+        return _AdmmUpdateFn.apply(Kx, u, lam, kind)
+    return _admm_launch(Kx, u, lam, kind)
 
 
 fused_admm_update.launches = 0
@@ -430,7 +585,7 @@ def bdot(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """
     if _on_cpu(p):
         return bdot_plain(p, q)
-    if torch.is_grad_enabled() and (p.requires_grad or q.requires_grad):
+    if _requires_grad(p, q):
         return _BdotFn.apply(p, q)
     return _bdot_launch(p, q)
 
@@ -451,20 +606,28 @@ def fused_cg_tail_plain(x, r, p, Ap, rs):
     return x, r, p, rs_new
 
 
-def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
-                  Ap: torch.Tensor, rs: torch.Tensor):
-    """One CG iteration minus the matvec, per batch element:
-    ``alpha = rs / max(<p, Ap>, 1e-32)``, ``x' = x + alpha p``,
-    ``r' = r - alpha Ap``, ``rs' = <r', r'>``, ``beta = rs' / max(rs, 1e-32)``,
-    ``p' = r' + beta p``; returns ``(x', r', p', rs')`` as new tensors.
+def fused_cg_tail_vjp(gx, gr, gp, grs, p, Ap, rs, r_new, rs_new):
+    """Gradients of ``fused_cg_tail`` with respect to (x, r, p, Ap, rs),
+    given the cotangents of (x', r', p', rs') and the call's p, Ap, rs, r'
+    and rs'. With ``a = rs / max(<p, Ap>, 1e-32)`` and ``b = rs' /
+    max(rs, 1e-32)``, written out from x' = x + a p, r' = r - a Ap,
+    rs' = <r', r'>, p' = r' + b p; each floor passes the gradient where its
+    operand is at or above it, as the plain version's ``torch.clamp`` does."""
+    e = lambda s: s.reshape((-1,) + (1,) * (p.ndim - 1))
+    pAp = bdot_plain(p, Ap)
+    cp, cr = torch.clamp(pAp, min=1e-32), torch.clamp(rs, min=1e-32)
+    alpha, beta = rs / cp, rs_new / cr
+    gbeta = bdot_plain(gp, p)
+    g_rnew = gr + gp + 2 * e(grs + gbeta / cr) * r_new
+    galpha = bdot_plain(gx, p) - bdot_plain(g_rnew, Ap)
+    gpAp = -galpha * rs / (cp * cp) * (pAp >= 1e-32)
+    g_rs = galpha / cp - gbeta * rs_new / (cr * cr) * (rs >= 1e-32)
+    g_p = e(alpha) * gx + e(beta) * gp + e(gpAp) * Ap
+    g_Ap = -e(alpha) * g_rnew + e(gpAp) * p
+    return gx, g_rnew, g_p, g_Ap, g_rs
 
-    x, r, p, Ap: contiguous float32 [B, ...] of one shape; rs: float32 [B].
-    The scalars stay on the device and the sums have a fixed order. The
-    outputs are new tensors: ``cg_pallas`` starts with p aliasing r, so an
-    update in place would be wrong.
-    """
-    if _on_cpu(x):
-        return fused_cg_tail_plain(x, r, p, Ap, rs)
+
+def _cg_tail_launch(x, r, p, Ap, rs):
     B, D = _rows((x, r, p, Ap), ("x", "r", "p", "Ap"), "fused_cg_tail")
     _real_dtype(rs, "rs", "fused_cg_tail")
     _cuda_tensor(rs, "rs", torch.float32, x.device, ndim=1)
@@ -483,6 +646,40 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     _check(err, "cg_tail", "fused_cg_tail")
     fused_cg_tail.launches += 1
     return x_out, r_out, p_out, rs_out
+
+
+class _CgTailFn(torch.autograd.Function):
+    """The kernel's forward with the closed-form VJP (``fused_cg_tail_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, r, p, Ap, rs):
+        outs = _cg_tail_launch(x, r, p, Ap, rs)
+        ctx.save_for_backward(p, Ap, rs, outs[1], outs[3])
+        return outs
+
+    @staticmethod
+    def backward(ctx, gx, gr, gp, grs):
+        return fused_cg_tail_vjp(gx, gr, gp, grs, *ctx.saved_tensors)
+
+
+def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
+                  Ap: torch.Tensor, rs: torch.Tensor):
+    """One CG iteration minus the matvec, per batch element:
+    ``alpha = rs / max(<p, Ap>, 1e-32)``, ``x' = x + alpha p``,
+    ``r' = r - alpha Ap``, ``rs' = <r', r'>``, ``beta = rs' / max(rs, 1e-32)``,
+    ``p' = r' + beta p``; returns ``(x', r', p', rs')`` as new tensors.
+
+    x, r, p, Ap: contiguous float32 [B, ...] of one shape; rs: float32 [B].
+    The scalars stay on the device and the sums have a fixed order. The
+    outputs are new tensors: ``cg_pallas`` starts with p aliasing r, so an
+    update in place would be wrong. On the card, where grad is enabled,
+    the outputs are differentiable in all five inputs (``fused_cg_tail_vjp``).
+    """
+    if _on_cpu(x):
+        return fused_cg_tail_plain(x, r, p, Ap, rs)
+    if _requires_grad(x, r, p, Ap, rs):
+        return _CgTailFn.apply(x, r, p, Ap, rs)
+    return _cg_tail_launch(x, r, p, Ap, rs)
 
 
 fused_cg_tail.launches = 0

@@ -87,6 +87,7 @@ class DeepTVDenoiser(Denoiser):
             return self.weight * d + (1 - self.weight) * t
         num = torch.sum((x - t) * (d - t))
         den = torch.sum((d - t) ** 2) + 1e-12
-        w = torch.clamp(num / den, 0.0, 1.0)
+        w = num / den
+        w = torch.minimum(torch.maximum(w, w.new_zeros(())), w.new_ones(()))
         return w * d + (1 - w) * t
 

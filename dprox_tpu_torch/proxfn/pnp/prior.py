@@ -66,7 +66,7 @@ class deep_prior(ProxFn):
     def _prox(self, v, lam, params=None, step=None):
         sigma = safe_sqrt(lam) if self.sqrt else lam
         if self.clamp:
-            v = torch.clamp(v, 0.0, 1.0)
+            v = torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_ones(()))
         if v.is_complex():
             v = v.real
         inp = v[:, None] if v.ndim == 3 else v

@@ -69,7 +69,7 @@ def to_ndarray(x, debatch: bool = False, squeeze: bool = False) -> np.ndarray:
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(x, min=eps))
+    return torch.sqrt(torch.maximum(x, x.new_tensor(eps)))
 
 
 def expand_to_bchw(r: torch.Tensor) -> torch.Tensor:

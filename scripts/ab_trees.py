@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's reduction kernels, and the paths that run them, in
-several source trees, in turns, on one NVIDIA GPU.
+"""Time the port's TV and reduction kernels, and the paths that run them,
+in several source trees, in turns, on one NVIDIA GPU.
 
     python3 scripts/ab_trees.py TREE [TREE ...]
 
@@ -12,6 +12,12 @@ the card's drift over both. A tree's process imports that tree's
 dprox_tpu_torch and chip_smoke (its kernels build under TREE/build/) and
 prints JSON lines:
 
+* ``tv_denoise_chw`` at 3x512x512 with 10 iterations (the flagship's
+  call) and 3x256x256 with 5 (paths B and B'): CUDA-graph replay and eager
+  ms beside the bound, and a SHA-1 of each output, which must agree
+  between trees whose TV arithmetic is the same;
+* the tree's own chip_smoke.phase_main and phase_marginal (the flagship:
+  PSNR, marginal iterations/s, stage_ms with tv_branch);
 * ``bdot`` at every row a path hands it ([1, 8208], [1, 32784], [1, 8208]
   float64, [1, 520] float64, [8, 520], 1x3x256x256) and ``fused_cg_tail``
   at 1x3x256x256 and 1x3x512x512: CUDA-graph replay and eager ms (median
@@ -57,6 +63,20 @@ def measure(tree: str) -> int:
     kernels.build()
     rng = np.random.RandomState(0)
     f32, f64 = torch.float32, torch.float64
+    lam = torch.full((1,), 0.05, device=dev)
+    for shape, it in ((3, 512, 512), 10), ((3, 256, 256), 5):
+        y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+        out = kernels.tv_denoise_chw(y, lam, it)
+        n = y.numel()
+        cs.emit({"kernel": "tv_denoise_chw", "shape": list(shape), "iterations": it,
+                 "sha1": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest(),
+                 "ms": cs.time_ms(lambda: kernels.tv_denoise_chw(y, lam, it)),
+                 "eager_ms": cs.time_ms(lambda: kernels.tv_denoise_chw(y, lam, it), graph=False),
+                 "library_ms": None, "bound_ms": cs.bound(8 * n + 4, n * (16 * (it - 1) + 6))[0],
+                 "card": card})
+    solver, b, _ = cs.phase_main(dp, kernels, dev)
+    cs.phase_marginal(dp, solver, b, card)
+    del solver, b
     for shape, dtype in [((1, 8208), f32), ((1, 32784), f32), ((1, 8208), f64),
                          ((1, 520), f64), ((8, 520), f32), ((1, 3, 256, 256), f32)]:
         p = torch.from_numpy(rng.randn(*shape)).to(device=dev, dtype=dtype)

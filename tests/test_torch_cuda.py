@@ -31,7 +31,8 @@ def cuda():
     ((3, 512, 512), 10, False), ((1, 37, 53), 10, False), ((2, 130, 257), 10, True),
     ((4, 2, 70), 3, True), ((1, 33, 2), 1, False), ((2, 64, 96), 30, False)])
 def test_tv_kernel_matches_plain(cuda, shape, iterations, per_plane):
-    """Same float32 op order, no contraction: exact up to 1e-5."""
+    """Same float32 op order, no contraction: bit for bit (and so within
+    1e-5)."""
     rng = np.random.RandomState(0)
     y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
     lam = torch.from_numpy((0.02 + 0.1 * rng.rand(shape[0] if per_plane else 1))
@@ -42,6 +43,51 @@ def test_tv_kernel_matches_plain(cuda, shape, iterations, per_plane):
     ref = kernels.tv_denoise_chw_plain(y, lam, iterations)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-5
+    assert torch.equal(got, ref)
+
+
+# the paths' shapes (flagship 3x512x512 at 10 iterations, B and B' 3x256x256
+# at 5), widths on both sides of one and two 128-column windows, heights on
+# both sides of the 32- and 96-row windows (and of 64), one and two planes, lam per
+# plane, and 1..44 iterations (44: the largest count a shared-memory window
+# of 4 (32 + 2R)^2 floats took in 227 KB)
+TV_WINDOW_CASES = [
+    ((3, 512, 512), 10, False), ((3, 256, 256), 5, False), ((1, 31, 127), 1, False),
+    ((2, 32, 128), 5, True), ((1, 33, 129), 10, False), ((2, 63, 257), 10, True),
+    ((1, 64, 128), 31, False), ((2, 65, 129), 44, True), ((1, 95, 127), 5, False),
+    ((2, 96, 257), 10, True), ((1, 97, 128), 44, False), ((2, 130, 257), 31, True)]
+
+
+@pytest.mark.parametrize("shape,iterations,per_plane", TV_WINDOW_CASES)
+def test_tv_kernel_every_window_equals_plain_bit_for_bit(cuda, shape, iterations, per_plane):
+    """Each window the count fits (kernels.TV_WINDOWS) and the one the
+    kernel picks give the plain version's bits; so do a second call and a
+    CUDA-graph replay; one launch a call."""
+    rng = np.random.RandomState(12)
+    y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    lam = torch.from_numpy((0.02 + 0.1 * rng.rand(shape[0] if per_plane else 1))
+                           .astype(np.float32)).to(cuda)
+    ref = kernels.tv_denoise_chw_plain(y, lam, iterations)
+    before = kernels.tv_denoise_chw.launches
+    got = kernels.tv_denoise_chw(y, lam, iterations)
+    assert kernels.tv_denoise_chw.launches == before + 1
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert torch.equal(got, ref)
+    assert torch.equal(got, kernels.tv_denoise_chw(y, lam, iterations))
+    assert torch.equal(got, _replayed(lambda: kernels.tv_denoise_chw(y, lam, iterations)))
+    fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS)
+            if warps * rows - 2 * iterations >= 1]
+    assert kernels.tv_window(*shape, iterations) in fits
+    for i in fits:
+        assert torch.equal(kernels._tv_launch(y, lam, iterations, i), ref), i
+
+
+def test_tv_kernel_takes_1_to_44_iterations_in_one_launch(cuda):
+    assert kernels.tv_max_iterations() >= 44
+    assert kernels.tv_window(3, 512, 512, 10) >= 0 and kernels.tv_window(3, 256, 256, 5) >= 0
+    with pytest.raises(ValueError):
+        kernels._tv_launch(torch.rand(1, 8, 8, device=cuda), torch.ones(1, device=cuda), 40, 0)
 
 
 @pytest.mark.parametrize("fshape,dshape,rshape,strided", [
@@ -661,3 +707,143 @@ def test_slice_on_cuda_matches_cpu(cuda):
         counts = kernels.launch_counts()
         assert (counts["tv_denoise_chw"], counts["freq_divide"]) == (expected, expected)
     assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4
+
+
+def _rel(got, ref):
+    """max |got - ref| / max |ref|, in float64."""
+    got, ref = got.to(ref.dtype), ref
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-300))
+
+
+def test_tv_gradient_is_the_plain_versions(cuda):
+    """The backward recomputes the plain version from y0 and lam under
+    autograd, so its gradients are the plain version's, bit for bit; the
+    forward is one kernel launch; without grad there is no graph."""
+    rng = np.random.RandomState(13)
+    y = torch.from_numpy(rng.rand(2, 37, 53).astype(np.float32)).to(cuda).requires_grad_()
+    lam = torch.tensor([0.05, 0.08], device=cuda, requires_grad=True)
+    g = torch.from_numpy(rng.randn(2, 37, 53).astype(np.float32)).to(cuda)
+    before = kernels.tv_denoise_chw.launches
+    out = kernels.tv_denoise_chw(y, lam, 10)
+    assert kernels.tv_denoise_chw.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (y, lam), g)
+    ref_out = kernels.tv_denoise_chw_plain(y, lam, 10)
+    ref = torch.autograd.grad(ref_out, (y, lam), g)
+    assert torch.equal(out, ref_out)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.equal(a, b)
+    with torch.no_grad():
+        assert kernels.tv_denoise_chw(y, lam, 10).grad_fn is None
+
+
+@pytest.mark.parametrize("rho_shape,diag_shape", [((), (1, 3, 32, 40)), ((2, 1, 1, 1), ()),
+                                                  ((1,), (1, 1, 32, 40))])
+def test_freq_divide_gradient_matches_plain(cuda, rho_shape, diag_shape):
+    """Against autograd of the plain version on complex128 / float64 copies:
+    relative 1e-5 of each gradient's largest entry (float32 against float64
+    division, and sums over broadcast dims)."""
+    rng = np.random.RandomState(14)
+    shape = (2, 3, 32, 40)
+    F = torch.from_numpy((rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64))
+    diag = torch.from_numpy(np.asarray(rng.rand(*diag_shape), np.float32))
+    rho = torch.from_numpy(np.asarray(1e-2 * (1 + rng.rand(*rho_shape)), np.float32))
+    g = torch.from_numpy((rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64))
+    ins = [t.to(cuda).requires_grad_() for t in (F, diag, rho)]
+    out = kernels.freq_divide(*ins)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, g.to(cuda))
+    ins64 = [t.to(cuda).to(torch.complex128 if t.is_complex() else torch.float64)
+             .requires_grad_() for t in (F, diag, rho)]
+    ref = torch.autograd.grad(kernels.freq_divide_plain(*ins64), ins64,
+                              g.to(cuda).to(torch.complex128))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["nonneg", "soft"])
+@pytest.mark.parametrize("per_batch", [False, True])
+def test_fused_admm_update_gradient_matches_plain_at_ties(cuda, kind, per_batch):
+    """Kx and u: the plain version's float32 autograd bit for bit, exact
+    ties (w == 0 and |w| == lam) included, where a tie takes half; lam: a
+    sum over the elements, relative 1e-5 of the float64 plain gradient."""
+    rng = np.random.RandomState(15)
+    shape = (2, 3, 16, 20)
+    Kx, u = _randn(rng, shape, cuda), _randn(rng, shape, cuda)
+    lam = torch.tensor([0.5, 0.25] if per_batch else [0.5], device=cuda)
+    Kx[0, 0, 0, :4] = torch.tensor([0.0, 0.5, -0.5, 0.25], device=cuda)
+    Kx[1, 0, 0, :3] = torch.tensor([0.0, 0.25 if per_batch else 0.5, -0.5], device=cuda)
+    u[:, 0, 0, :4] = 0.0
+    gv, gu = _randn(rng, shape, cuda), _randn(rng, shape, cuda)
+    ins = [t.clone().requires_grad_() for t in (Kx, u, lam)]
+    before = kernels.fused_admm_update.launches
+    v, u_new = kernels.fused_admm_update(*ins, kind)
+    assert kernels.fused_admm_update.launches == before + 1
+    assert v.grad_fn is not None and u_new.grad_fn is not None
+    wrt = ins if kind == "soft" else ins[:2]
+    got = torch.autograd.grad((v * gv).sum() + (u_new * gu).sum(), wrt)
+    ref_in = [t.clone().requires_grad_() for t in (Kx, u, lam)]
+    rv, ru = kernels.fused_admm_update_plain(*ref_in, kind)
+    ref = torch.autograd.grad((rv * gv).sum() + (ru * gu).sum(), ref_in[:2])
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    w = (Kx + u)[0, 0, 0, 0]
+    assert float(w) == 0.0  # a tie is in the data
+    if kind == "soft":
+        in64 = [t.double().requires_grad_() for t in (Kx, u, lam)]
+        rv, ru = kernels.fused_admm_update_plain(*in64, kind)
+        glam, = torch.autograd.grad((rv * gv.double()).sum() + (ru * gu.double()).sum(), in64[2])
+        assert _rel(got[2], glam) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 64, 64), (2, 3, 37, 53)])
+def test_fused_cg_tail_gradient_matches_plain(cuda, shape):
+    """All five inputs, against autograd of the plain version on float64
+    copies: relative 1e-4 of each gradient's largest entry (the forward's
+    and the backward's float32 sums, each ~1e-6 off the float64 ones,
+    carried through alpha and beta)."""
+    rng = np.random.RandomState(16)
+    x, r, p = (_randn(rng, shape, cuda) for _ in range(3))
+    Ap = p * 1.5 + 0.1 * _randn(rng, shape, cuda)
+    rs = kernels.bdot_plain(r, r)
+    ws = [_randn(rng, shape, cuda) for _ in range(3)] + [torch.from_numpy(
+        rng.randn(shape[0]).astype(np.float32)).to(cuda)]
+    ins = [t.clone().requires_grad_() for t in (x, r, p, Ap, rs)]
+    before = kernels.fused_cg_tail.launches
+    outs = kernels.fused_cg_tail(*ins)
+    assert kernels.fused_cg_tail.launches == before + 1
+    assert all(o.grad_fn is not None for o in outs)
+    got = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, ws)), ins)
+    in64 = [t.double().requires_grad_() for t in (x, r, p, Ap, rs)]
+    outs64 = kernels.fused_cg_tail_plain(*in64)
+    ref = torch.autograd.grad(sum((o * w.double()).sum() for o, w in zip(outs64, ws)), in64)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("prior", ["norm1", "tv"])
+def test_unrolled_solve_gradient_on_cuda_matches_cpu(cuda, prior):
+    """d loss / d (rhos, lams) of a 5-iteration admm solve at 1x3x32x32
+    through the kernels and their backwards, against the same solve on the
+    CPU (plain versions): relative 1e-3 of each gradient's largest entry
+    (cuFFT against the CPU's FFT, carried through five iterations)."""
+    img = imaging._synthetic_face(512, 512)[224:256, 224:256].transpose(2, 0, 1)[None]
+    img = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    psf = imaging.point_spread_function(5, 2)
+    b = imaging.blurring(img, psf)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        reg = dp.norm1(dp.grad(x)) if prior == "norm1" else dp.deep_prior(x, "tv")
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b.to(device)), reg], "admm",
+                            device=device)
+        rhos = torch.tensor([0.05, 0.04, 0.06, 0.05, 0.03], device=device, requires_grad=True)
+        lams = torch.tensor([0.01, 0.02, 0.015, 0.01, 0.012], device=device,
+                            requires_grad=True)
+        kernels.reset_launches()
+        out = solver.solve(x0=b.to(device), max_iter=5, rhos=rhos, lams=lams)
+        loss = torch.mean((out - img.to(device)) ** 2)
+        grads[device] = [g.cpu() for g in torch.autograd.grad(loss, (rhos, lams))]
+        counts = kernels.launch_counts()
+    assert counts["freq_divide"] == 5
+    assert counts["fused_admm_update" if prior == "norm1" else "tv_denoise_chw"] == 5
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        assert float(c.abs().max()) > 0 and _rel(a.double(), c.double()) <= 1e-3
