@@ -55,6 +55,21 @@ exits non-zero):
 8. lp_consensus - synthetic_cep_scenarios(64, 8, 8) through
               solve_consensus_lp(fused=True) in float32 against the HiGHS
               optimum of the extensive form, twice, bit for bit.
+9. family   - the FFDNet prior family on the 512x512x3 deconvolution:
+              the flagship with x8=True (8 TV launches an iteration),
+              distilled_color_tv_bf16, res_ffdnet_color_tv, and
+              distilled_gray_tv on the face's 1x1x512x512 luminance; each
+              PSNR held against the JAX package on the CPU, launch counts,
+              marginal iterations/s, one iteration's eager and device time;
+              and one x8 denoise of a 3x384x512 input (TV planes 384x512
+              and 512x384) bit for bit against the same call with the
+              plain TV.
+10. algos   - every solver (admm, ladmm, admm_vxu, hqs, pc, pgd, cadmm)
+              on the 512x512x3 nonneg deconvolution, hqs and admm_vxu
+              with the flagship prior, dp.Problem on the nonneg problem,
+              each PSNR against the JAX package on the CPU, with launch
+              counts and one iteration's eager and device time; and the LP
+              dispatch dp.Problem(c @ x, [A @ x == b]) against HiGHS.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls.
@@ -117,6 +132,30 @@ JAX_CPU_NONNEG_PSNR_X = 26.406545602764183
 JAX_CPU_JOINT_PSNR_INIT = 25.143699769015036
 JAX_CPU_JOINT_PSNR_X = {"cg_pallas": 26.921728215415563, "default_pcg": 26.936196782092523}
 
+# The family and algos phases: PSNRs (dB) of the JAX package on the CPU on
+# the observations these phases make (observation(512, psf(15, 5), False)
+# and its luminance, luminance_observation), printed by
+#   JAX_PLATFORMS=cpu python scripts/smoke_references.py
+# (each solve's settings are in that script and in the phases below).
+JAX_CPU_FAMILY_PSNR_X = {"distilled_color_tv_x8": 28.631571643994956,
+                         "distilled_color_tv_bf16": 28.526233903982913,
+                         "res_ffdnet_color_tv": 28.314767701237177,
+                         "distilled_gray_tv": 31.383059853972934}
+JAX_CPU_ALGOS_PSNR_X = {"admm_nonneg": 25.890694149953802, "ladmm_nonneg": 25.890694149953802,
+                        "admm_vxu_nonneg": 25.893772648818064,
+                        "hqs_nonneg": 25.890018955947134, "pc_nonneg": 25.273496359907913,
+                        "pgd_nonneg": 25.178723613267586, "cadmm_nonneg": 25.69494932870684,
+                        "hqs_distilled_color_tv": 28.507916177775027,
+                        "admm_vxu_distilled_color_tv": 28.52154720381231,
+                        "problem_nonneg": 25.890694149953802}
+# A bfloat16 network rounds its activations to 8 bits of mantissa, and
+# cuDNN's bf16 convolutions round their sums otherwise than XLA-CPU's, so
+# the bf16 flagship's denoiser outputs differ by a unit in the last bf16
+# place between the two (2**-8 relative) where float32 outputs agree to
+# 1e-6; the solve feeds those back for 48 iterations.
+PSNR_TOL_BF16_DB = 0.2
+LUMA = np.array([0.299, 0.587, 0.114])  # ITU-R BT.601 luminance weights
+
 # The LP phase: synthetic_cep_model(512, 16) in float32. The values below were
 # computed with the JAX package on the CPU by
 #   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import jax; jax.config.update('jax_platforms','cpu'); import numpy as np, jax.numpy as jnp; from dprox_tpu.algo.lp import LPProblem, LPSolverADMM; from dprox_tpu.contrib.energy_system import synthetic_cep_model; c, A_ub, A_eq, b_ub, b_eq = synthetic_cep_model(512, 16); p = LPProblem(c, A_ub, b_ub, A_eq, b_eq, dtype=jnp.float32); x, res = LPSolverADMM(dtype=jnp.float32, verbose=False).solve_fused(p, max_iters=20000); x = np.asarray(x, np.float64); print(res['iters'], c @ x, x.min(), np.abs(A_eq @ x - b_eq).max(), (A_ub @ x - b_ub).max())"
@@ -149,10 +188,12 @@ SPMV_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 SPMV_SCIPY_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # against scipy's float64 A @ x
 
 TV_TOL = 1e-5          # max |kernel - plain|, same op order in float32 (and bit-equal)
-# (shape, iterations, lam per plane): the paths' shapes, odd sizes, and
+# (shape, iterations, lam per plane): the paths' shapes (x8 hands a
+# 3x384x512 input over as 384x512 and 512x384 planes), odd sizes, and
 # sizes on both sides of the TV kernel's windows (128 columns; 32 and
 # 96 rows), 1..44 iterations
-TV_CASES = [((3, 512, 512), 10, False), ((3, 256, 256), 5, False), ((1, 37, 53), 10, False),
+TV_CASES = [((3, 512, 512), 10, False), ((3, 256, 256), 5, False), ((3, 384, 512), 10, False),
+            ((3, 512, 384), 10, False), ((1, 512, 512), 10, False), ((1, 37, 53), 10, False),
             ((2, 130, 257), 10, True), ((3, 512, 512), 5, False), ((1, 31, 127), 1, False),
             ((2, 32, 128), 5, True), ((1, 33, 129), 10, False), ((2, 63, 257), 10, True),
             ((1, 64, 128), 31, False), ((2, 65, 129), 44, True), ((1, 95, 127), 5, False),
@@ -425,6 +466,7 @@ def phase_marginal(dp, solver, b, card):
     emit({"phase": "marginal", "its_per_sec": statistics.median(obs), "obs": obs,
           "span": f"8-{MAIN_ITERS}", "statistic": "median of 3 best-of-3",
           "stage_ms": stages, "card": card})
+    return statistics.median(obs)
 
 
 def _randn(rng, shape, dev):
@@ -1514,6 +1556,239 @@ def phase_lp_consensus(kernels, dev, card):
         raise AssertionError("lp_consensus: two solves of one problem differ")
 
 
+def luminance_observation(psf, dev):
+    """(img, b) as 1x1x512x512 tensors on ``dev``: the luminance of the
+    synthetic face, blurred with ``psf`` in float64 on the host and rounded
+    to float32, as scripts/smoke_references.py makes them."""
+    from dprox_tpu_torch.utils.fft import psf2otf
+    from dprox_tpu_torch.utils.imaging import _synthetic_face
+
+    img = np.tensordot(LUMA, _synthetic_face(512, 512).transpose(2, 0, 1).astype(np.float64),
+                       axes=1)[None, None]
+    otf = psf2otf(np.asarray(psf).squeeze(), img.shape[-2:])
+    b = np.real(np.fft.ifft2(otf * np.fft.fft2(img))).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (img, b))
+
+
+def _iteration_ms(solver, b, rho, lam):
+    """One iteration of ``solver`` from its initial state: eager (host
+    launch overhead included, as in the solve loop) and device time from a
+    CUDA-graph replay."""
+    aux = solver.prepare_aux(b, {})
+    state = solver.initialize(b, {})
+    rho = torch.as_tensor(rho, dtype=torch.float32, device=b.device)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=b.device)
+    step = lambda: solver._iter(state, rho, [lam] * len(solver.psi_fns), 0, {}, aux)  # noqa: E731
+    return {"iteration_eager_ms": time_ms(step, 10, 3, graph=False),
+            "iteration_device_ms": time_ms(step, 10, 3)}
+
+
+def _gated_solve(kernels, solver, img, b, max_iter, rhos, lams, ref, tol, expected):
+    """Solve once with the launch counts read around it; returns the
+    record. Fails on a bad shape, non-finite values, a PSNR more than
+    ``tol`` dB from the JAX-CPU ``ref`` or launch counts other than
+    ``expected`` (the kernels not named there: 0)."""
+    from dprox_tpu_torch.utils.metrics import psnr
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = solver.solve(x0=b, max_iter=max_iter, rhos=rhos, lams=lams)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    p_x = psnr(out, img)
+    rec = {"iterations": max_iter, "solve_s": seconds, "launches": launches, "psnr_x": p_x,
+           "jax_cpu_psnr_x": ref, "psnr_gap_db": p_x - ref, "psnr_gap_limit_db": tol,
+           "launches_per_iteration": {k: v / max_iter for k, v in launches.items() if v}}
+    if out.shape != img.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bad output: shape {tuple(out.shape)} or non-finite values")
+    if not abs(p_x - ref) <= tol:
+        raise AssertionError(f"PSNR {p_x} not within {tol} dB of JAX-CPU {ref}")
+    want = dict.fromkeys(launches, 0) | expected
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return rec
+
+
+class _PlainTV:
+    """A TV denoiser with the kernel's plain version in place of the kernel."""
+
+    def __init__(self, iter_num):
+        self.iter_num = iter_num
+
+    def denoise(self, x, sigma):
+        from dprox_tpu_torch.ops.kernels import tv_denoise_chw_plain
+
+        B, C, H, W = x.shape
+        lam = torch.as_tensor(sigma, dtype=x.dtype, device=x.device).reshape(-1)
+        return tv_denoise_chw_plain(x.reshape(B * C, H, W), lam, self.iter_num).reshape(
+            B, C, H, W)
+
+
+def phase_family(dp, kernels, dev, card, flagship_its):
+    """The FFDNet prior family at 512x512: the flagship under x8, in
+    bfloat16, the res_ffdnet_color_tv fusion and the gray distilled_gray_tv
+    on the face's luminance, each against the JAX package on the CPU; and
+    one x8 denoise of a 3x384x512 input against the same call with the
+    plain TV."""
+    import copy
+
+    from dprox_tpu_torch.proxfn.pnp import Augment, get_denoiser
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+
+    psf = point_spread_function(15, 5)
+    img, b = observation(512, psf, False, dev)
+    gimg, gb = luminance_observation(psf, dev)
+    r24, s24 = dp.log_descent(80, 25, 24)
+    r48, s48 = dp.log_descent(80, 30, 48)
+    # (name, prior, x8, observation, iterations, schedules, marginal span,
+    #  TV launches per iteration)
+    cases = [("distilled_color_tv_x8", "distilled_color_tv", True, (img, b), 24, (r24, s24),
+              (4, 24), 8),
+             ("distilled_color_tv_bf16", "distilled_color_tv_bf16", False, (img, b), 48,
+              (r48, s48), (8, 48), 1),
+             ("res_ffdnet_color_tv", "res_ffdnet_color_tv", False, (img, b), 48, (r48, s48),
+              (8, 48), 1),
+             ("distilled_gray_tv", "distilled_gray_tv", False, (gimg, gb), 48, (r48, s48),
+              (8, 48), 1)]
+    solves, by_path = {}, {}
+    for name, prior, x8, (im, ob), n, (rhos, sigmas), (lo, hi), tv_per_it in cases:
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - ob),
+                             dp.deep_prior(x, prior, x8=x8)], "admm")
+        tol = PSNR_TOL_BF16_DB if name.endswith("bf16") else PSNR_TOL_DB
+        rec = _gated_solve(kernels, solver, im, ob, n, rhos, sigmas, JAX_CPU_FAMILY_PSNR_X[name],
+                           tol, {"tv_denoise_chw": tv_per_it * n, "freq_divide": n})
+        by_path[f"family_{name}"] = rec["launches"]
+        obs = _marginal(lambda k: solver.solve(x0=ob, max_iter=k, rhos=rhos[:k],
+                                               lams=sigmas[:k]), lo, hi, reps=3, estimates=3)
+        rec.update(its_per_sec=statistics.median(obs), obs=obs, span=f"{lo}-{hi}",
+                   statistic="median of 3 best-of-3",
+                   **_iteration_ms(solver, ob, rhos[0], sigmas[0]))
+        if name.endswith("bf16"):
+            rec["float32_flagship_its_per_sec"] = flagship_its
+            rec["its_per_sec_over_float32_flagship"] = rec["its_per_sec"] / flagship_its
+        solves[name] = rec
+        del solver
+
+    # x8 on a non-square input: the TV kernel gets 384x512 and 512x384
+    # planes; cuDNN picks deterministic algorithms for both calls
+    rng = np.random.RandomState(10)
+    y = torch.from_numpy(rng.rand(1, 3, 384, 512).astype(np.float32)).to(dev)
+    sigma = torch.tensor([0.05], device=dev)
+    den = get_denoiser("distilled_color_tv").to(dev)
+    plain = copy.copy(den)
+    plain.tv = _PlainTV(den.tv.iter_num)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            kernels.reset_launches()
+            got = Augment(den).denoise(y, sigma)
+            tv_launches = kernels.launch_counts()["tv_denoise_chw"]
+            ref = Augment(plain).denoise(y, sigma)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    x8_check = {"shape": [1, 3, 384, 512], "tv_launches": tv_launches,
+                "bit_equal_to_plain_tv": torch.equal(got, ref),
+                "max_abs_err": float((got - ref).abs().max())}
+    emit({"phase": "family", "config": "deep_prior(x, kind) deconvolution, psf(15, 5), "
+          "1x3x512x512 synthetic face (gray: its 1x1x512x512 luminance)", "solves": solves,
+          "x8_non_square_denoise": x8_check, "card": card})
+    if not (x8_check["bit_equal_to_plain_tv"] and tv_launches == 8):
+        raise AssertionError(f"x8 denoise on 3x384x512: {x8_check}")
+    return by_path
+
+
+def phase_algos(dp, kernels, dev, card):
+    """Every solver on the 512x512x3 deconvolution with nonneg (the
+    settings of tests/test_algorithms.py, 24 iterations), hqs and admm_vxu
+    with the flagship prior (48 iterations), the same nonneg problem
+    through dp.Problem, and the LP dispatch Problem(c @ x, [A @ x == b])
+    against HiGHS."""
+    from scipy.optimize import linprog
+
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+
+    psf = point_spread_function(15, 5)
+    img, b = observation(512, psf, False, dev)
+    solves, by_path = {}, {}
+    for method in ("admm", "ladmm", "admm_vxu", "hqs", "pc", "pgd", "cadmm"):
+        kw = {"pc": dict(rhos=1.0, lams=0.1), "pgd": dict(rhos=0.4, lams=0.002)}.get(
+            method, dict(rhos=0.05, lams=0.01))
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b), dp.nonneg(x)], method)
+        expected = {"freq_divide": 0 if method == "pgd" else 24,
+                    "fused_admm_update": 24 if method == "admm" else 0}
+        name = f"{method}_nonneg"
+        rec = _gated_solve(kernels, solver, img, b, 24, kw["rhos"], kw["lams"],
+                           JAX_CPU_ALGOS_PSNR_X[name], PSNR_TOL_DB, expected)
+        rec.update(settings=kw, **_iteration_ms(solver, b, kw["rhos"], kw["lams"]))
+        solves[name] = rec
+        by_path[f"algos_{name}"] = rec["launches"]
+    rhos, sigmas = dp.log_descent(80, 30, 48)
+    for method in ("hqs", "admm_vxu"):
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b),
+                             dp.deep_prior(x, "distilled_color_tv")], method)
+        name = f"{method}_distilled_color_tv"
+        rec = _gated_solve(kernels, solver, img, b, 48, rhos, sigmas, JAX_CPU_ALGOS_PSNR_X[name],
+                           PSNR_TOL_DB, {"tv_denoise_chw": 48, "freq_divide": 48})
+        rec.update(**_iteration_ms(solver, b, rhos[0], sigmas[0]))
+        solves[name] = rec
+        by_path[f"algos_{name}"] = rec["launches"]
+        del solver
+
+    from dprox_tpu_torch.utils.metrics import psnr
+
+    x = dp.Variable()
+    prob = dp.Problem(dp.sum_squares(dp.conv(x, psf) - b) + dp.nonneg(x))
+    kernels.reset_launches()
+    out = prob.solve(x0=b, max_iter=24, rhos=0.05, lams=0.01)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    p_x = psnr(out, img)
+    ref = JAX_CPU_ALGOS_PSNR_X["problem_nonneg"]
+    problem = {"launches": launches, "psnr_x": p_x, "jax_cpu_psnr_x": ref,
+               "psnr_gap_db": p_x - ref, "output_device": str(out.device)}
+
+    # the LP dispatch of tests/test_lp.py::test_problem_dispatches_lp
+    rng = np.random.RandomState(1)
+    n = 10
+    c = rng.rand(n) + 0.1
+    A = rng.rand(4, n)
+    rhs = A @ rng.rand(n)
+    xv = dp.Variable()
+    kernels.reset_launches()
+    sol, _, res = dp.Problem(c @ xv, [A @ xv == rhs]).solve(max_iters=3000, pretrain_steps=3,
+                                                             verbose=False)
+    objval, r_norm, s_norm, eps_p, eps_d = (float(v) for v in res)
+    torch.cuda.synchronize()
+    lp_launches = kernels.launch_counts()
+    sol = sol.detach().cpu().double().numpy()
+    highs = linprog(c, A_eq=A, b_eq=rhs, bounds=[(0, None)] * n, method="highs")
+    lp = {"launches": lp_launches, "r_norm": r_norm, "eps_primal": eps_p, "s_norm": s_norm,
+          "eps_dual": eps_d,
+          "max_constraint_residual": float(np.abs(A @ sol - rhs).max()),
+          "objective": float(c @ sol), "highs_objective": float(highs.fun),
+          "objective_rel_gap": float(abs(c @ sol - highs.fun) / abs(highs.fun))}
+    emit({"phase": "algos", "config": "sum_squares(conv(x, psf(15, 5)) - b) + nonneg(x) or "
+          "deep_prior(x, 'distilled_color_tv'), 1x3x512x512", "solves": solves,
+          "problem": problem, "lp_dispatch": lp, "card": card})
+    by_path["algos_problem_nonneg"] = launches
+    by_path["algos_lp_dispatch"] = lp_launches
+    if not abs(p_x - ref) <= PSNR_TOL_DB:
+        raise AssertionError(f"Problem: PSNR {p_x} not within {PSNR_TOL_DB} dB of {ref}")
+    if launches != dict.fromkeys(launches, 0) | {"freq_divide": 24, "fused_admm_update": 24}:
+        raise AssertionError(f"Problem: launch counts {launches}")
+    if not (lp["max_constraint_residual"] < 5e-2 and lp["objective_rel_gap"] <= 1e-2
+            and lp_launches["csr_matvec"] > 0 and lp_launches["bdot"] > 0):
+        raise AssertionError(f"LP dispatch: {lp}")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1535,7 +1810,7 @@ def main() -> int:
                 + phase_check_bsr(kernels, dev))
     phase_kernels_per_call(kernels, dev)
     solver, b, launches = phase_main(dp, kernels, dev)
-    phase_marginal(dp, solver, b, card)
+    flagship_its = phase_marginal(dp, solver, b, card)
     del solver, b
     by_path = {"flagship": launches, "nonneg": phase_nonneg(dp, kernels, dev, card)}
     joint = phase_joint(dp, kernels, dev, card)
@@ -1543,6 +1818,8 @@ def main() -> int:
     phase_grad(dp, kernels, dev, card)
     by_path["lp"] = phase_lp(kernels, dev, card)
     phase_lp_consensus(kernels, dev, card)
+    by_path.update(phase_family(dp, kernels, dev, card, flagship_its))
+    by_path.update(phase_algos(dp, kernels, dev, card))
     # each kernel's count on the main-path solve that is its own; bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
     # rows (BSRMat.route), and phase check_bsr holds the tile kernel

@@ -1,11 +1,13 @@
-"""ADMM as an eager iteration step.
+"""ADMM, linearized ADMM and prox-first ADMM as eager iteration steps.
 
-Counterpart of dprox_tpu/algo/admm.py::ADMM. Partition rule: plain
-``sum_squares`` go to the omega (data) set solved in the x-update;
-everything else becomes a psi block with consensus variables (v_i, u_i).
-State = (x, v_tuple, u_tuple). The (v_i, u_i) update of a plain ``nonneg``
-or ``norm1`` block runs as one ``fused_admm_update`` kernel, which
-computes exactly what the generic prox + dual update computes.
+Counterpart of dprox_tpu/algo/admm.py (``ADMM``, ``LinearizedADMM``,
+``ADMM_vxu``). Partition rule: plain ``sum_squares`` go to the omega
+(data) set solved in the x-update; everything else becomes a psi block
+with consensus variables (v_i, u_i). State = (x, v_tuple, u_tuple). In
+``ADMM`` the (v_i, u_i) update of a plain ``nonneg`` or ``norm1`` block
+runs as one ``fused_admm_update`` kernel, which computes exactly what the
+generic prox + dual update computes; the two variants override ``_iter``
+and take the generic route, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -92,3 +94,42 @@ class ADMM(Algorithm):
         Ktv = [self.psi_fns[i].dag_adjoint(v[i], params) for i in range(n)]
         d_scale = torch.maximum(nrm(y), nrm(Ktv)) + 1e-12
         return {"r_primal": r_p / p_scale, "r_dual": nrm(s) / d_scale}
+
+
+class LinearizedADMM(ADMM):
+    """x-update linearized around the current iterate."""
+
+    def _iter(self, state, rho, lam, step, params, aux):
+        x, v, u = state
+        b = []
+        for i, fn in enumerate(self.psi_fns):
+            tmp = fn.dag_adjoint(fn.dag_forward(x, params) - v[i] + u[i], params)
+            b.append(x - tmp)
+        x = self.least_square.solve(b, rho, params=params,
+                                    var_shapes=self._var_shapes(x),
+                                    prepared=aux.lsq, warm=x)
+        Kx = self.K_forward(x, params)
+        v_new, u_new = [], []
+        for i, fn in enumerate(self.psi_fns):
+            vi = fn.prox(Kx[i] + u[i], lam[i], params=params, step=step,
+                         offset=aux.offsets[i]).to(Kx[i].dtype)
+            v_new.append(vi)
+            u_new.append(u[i] + Kx[i] - vi)
+        return (x, tuple(v_new), tuple(u_new))
+
+
+class ADMM_vxu(ADMM):
+    """Prox-first iteration order; state (z, x_tuple, u_tuple)."""
+
+    def _iter(self, state, rho, lam, step, params, aux):
+        z, x, u = state
+        Kz = self.K_forward(z, params)
+        x_new = [fn.prox(Kz[i] - u[i], lam[i], params=params, step=step,
+                         offset=aux.offsets[i]).to(Kz[i].dtype)
+                 for i, fn in enumerate(self.psi_fns)]
+        b = [x_new[i] + u[i] for i in range(len(self.psi_fns))]
+        z = self.least_square.solve(b, rho, params=params,
+                                    var_shapes=self._var_shapes(z),
+                                    prepared=aux.lsq, warm=z)
+        u_new = tuple(u[i] + x_new[i] - z for i in range(len(self.psi_fns)))
+        return (z, tuple(x_new), u_new)

@@ -109,11 +109,25 @@ class Algorithm:
         return {n: tuple(x0.shape) for n in names}
 
     def defaults(self, rhos, lams, max_iter: int):
-        """rho=1.0, lam=0.02 broadcast to device schedules; one lam schedule
-        shared by every psi fn (per-fn schedules are not ported yet)."""
+        """(rho schedule, one lam schedule per psi fn) on the device; rho
+        defaults to 1.0 and lam to 0.02. ``lams`` is one value or schedule
+        shared by every psi fn, a dict keyed by the psi fn objects (0.02
+        for a missing fn), or a list of one value or schedule per psi fn.
+        A schedule is [max_iter], or [B, max_iter] for one per batch
+        element."""
         rhos = _schedule(1.0 if rhos is None else rhos, max_iter, self.device)
-        lam = _schedule(0.02 if lams is None else lams, max_iter, self.device)
-        return rhos, tuple(lam for _ in self.psi_fns)
+        if lams is None:
+            lams = 0.02
+        if isinstance(lams, dict):
+            lam_list = [_schedule(lams.get(fn, 0.02), max_iter, self.device)
+                        for fn in self.psi_fns]
+        elif (isinstance(lams, (list, tuple)) and len(lams) == len(self.psi_fns)
+              and not _isscalar(lams[0])):
+            lam_list = [_schedule(v, max_iter, self.device) for v in lams]
+        else:
+            lam = _schedule(lams, max_iter, self.device)
+            lam_list = [lam for _ in self.psi_fns]
+        return rhos, tuple(lam_list)
 
     def _prepare_x0(self, x0):
         return to_tensor(x0, batch=True, device=self.device).to(torch.float32)

@@ -1,12 +1,30 @@
-"""User primitive ``compile`` (counterpart of dprox_tpu/algo/primitives.py)."""
+"""User primitives (counterpart of dprox_tpu/algo/primitives.py).
+
+``compile`` partitions a proxfn objective and instantiates the chosen
+solver on a device; ``optimize`` runs the absorb pass. ``specialize`` and
+``train`` come with ROADMAP Queue 1 item 5, ``visualize`` with item 9.
+"""
 from __future__ import annotations
 
 from typing import List
 
 from ..proxfn.base import ProxFn
-from .admm import ADMM
+from .absorb import absorb_all_linops
+from .admm import ADMM, ADMM_vxu, LinearizedADMM
+from .cadmm import ConsensusADMM
+from .hqs import HQS
+from .pc import PockChambolle
+from .pgd import ProximalGradientDescent
 
-SOLVERS = {"admm": ADMM}
+SOLVERS = {
+    "admm": ADMM,
+    "admm_vxu": ADMM_vxu,
+    "ladmm": LinearizedADMM,
+    "hqs": HQS,
+    "pc": PockChambolle,
+    "pgd": ProximalGradientDescent,
+    "cadmm": ConsensusADMM,
+}
 
 
 def compile(prox_fns: List[ProxFn], method: str = "admm", device="cuda", **kwargs):
@@ -19,3 +37,23 @@ def compile(prox_fns: List[ProxFn], method: str = "admm", device="cuda", **kwarg
     algorithm = SOLVERS[method]
     psi_fns, omega_fns = algorithm.partition(prox_fns)
     return algorithm(psi_fns, omega_fns, device=device, **kwargs)
+
+
+def optimize(prox_fns: List[ProxFn], merge=False, absorb=True):
+    """Problem-rewrite passes: the absorb pass (merge is not a pass, as in
+    the JAX package)."""
+    if absorb:
+        prox_fns = absorb_all_linops(prox_fns)
+    return prox_fns
+
+
+def specialize(solver, method: str = "deq", **kwargs):
+    raise NotImplementedError("specializations come with ROADMAP Queue 1 item 5")
+
+
+def train(solver=None, step_fn=None, dataset=None, **kwargs):
+    raise NotImplementedError("training comes with ROADMAP Queue 1 item 5")
+
+
+def visualize(prox_fns=None, filename=None):
+    raise NotImplementedError("linop visualization comes with ROADMAP Queue 1 item 9")

@@ -1,3 +1,25 @@
-from .base import LinOp, Variable, Constant, Placeholder, scale, sum, vstack
+from .base import (LinOp, Variable, Constant, Placeholder, scale, split, sum, vstack,
+                   cast_to_const)
 from .ops import conv, grad, mosaic, mul_elementwise
+from .constraints import matmul, equality, less
 from .evaluate import eval, adjoint, gram, validate, est_norm
+
+# Compatibility names of the JAX package (dprox_tpu/linop/__init__.py).
+# Shared subexpressions need no copy nodes under functional evaluation, so
+# ``copy`` is the identity.
+
+
+def est_CompGraph_norm(op, tol: float = 1e-3, try_fast_norm: bool = False,
+                       shape=None, **kwargs):
+    """``est_norm`` under the reference's name and signature; ``tol`` and
+    ``try_fast_norm`` are accepted and unused (the power iteration runs its
+    fixed number of iterations)."""
+    del tol, try_fast_norm
+    if shape is not None:
+        kwargs["shape"] = shape
+    return est_norm(op, **kwargs)
+
+
+def copy(op):
+    """Identity: shared subexpressions need no copy nodes."""
+    return op

@@ -219,6 +219,12 @@ class LinOp:
     def __neg__(self):
         return scale(-1.0, self)
 
+    def __rmatmul__(self, other):
+        # A @ x: the objective/constraint records of the LP path
+        from .constraints import matmul
+
+        return matmul(self, other)
+
     def __repr__(self):
         return f"{type(self).__name__}({', '.join(repr(c) for c in self.children)})"
 
@@ -400,9 +406,19 @@ class sum(LinOp):
 
 
 class vstack(LinOp):
-    """Stack of independent operator branches; the solvers work on
-    per-ProxFn operator lists, so this node serves the joint diagonality
-    queries."""
+    """Stack of independent operator branches (list in, list out); the
+    solvers work on per-ProxFn operator lists, so this node serves the
+    joint diagonality queries."""
+
+    def forward_list(self, inputs, params=None, zero_constants=False):
+        cache: dict = {}
+        return [c.forward(inputs, params, zero_constants, cache) for c in self.children]
+
+    def adjoint_list(self, ys, params=None) -> Dict[str, Array]:
+        acc: Dict[str, Array] = {}
+        for c, y in zip(self.children, ys):
+            c.adjoint_into(y, params, acc)
+        return acc
 
     def is_gram_diag(self, freq: bool = False) -> bool:
         return all(c.is_gram_diag(freq) for c in self.children)
@@ -423,3 +439,14 @@ class vstack(LinOp):
                 return None
             out = s if out is None else out + s
         return out
+
+
+class split(vstack):
+    """Transpose of ``vstack``: forward and adjoint are vstack's swapped.
+    It exists for API parity; the solvers consume fn lists directly."""
+
+    def forward_list(self, ys, params=None, zero_constants=False):
+        return super().adjoint_list(ys, params)
+
+    def adjoint_list(self, inputs, params=None):
+        return super().forward_list(inputs, params)

@@ -1,2 +1,2 @@
 from .ffdnet import FFDNet
-from .tv import tv_denoising_chw
+from .tv import tv_denoising3d_chw, tv_denoising_chw

@@ -1,2 +1,12 @@
 from .prior import deep_prior, get_denoiser
-from .denoisers import Denoiser, FFDNetColorDenoiser, TVDenoiser, DeepTVDenoiser
+from .denoisers import (
+    Denoiser,
+    Denoiser2D,
+    FFDNetDenoiser,
+    FFDNetColorDenoiser,
+    TVDenoiser,
+    Augment,
+    BF16Denoiser,
+    DeepTVDenoiser,
+    EnsembleDenoiser,
+)

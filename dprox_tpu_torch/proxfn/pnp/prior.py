@@ -1,9 +1,11 @@
 """Plug-and-play deep denoiser prior.
 
-Counterpart of dprox_tpu/proxfn/pnp/prior.py (``deep_prior`` without the
-spatial-mesh branch, ``get_denoiser`` for the kinds this port carries):
-the prox of the learned prior is a denoiser evaluated at a noise level
-derived from lam.
+Counterpart of dprox_tpu/proxfn/pnp/prior.py: ``deep_prior`` (with
+``x8``; without trainable or unrolled parameters and without the spatial
+mesh) and ``get_denoiser`` for TV and the FFDNet family whose weights ship
+in ``weights/``, gray and color, with the DeepTV fusions and the
+bfloat16 flagship. The prox of the learned prior is a denoiser evaluated
+at a noise level derived from lam.
 """
 from __future__ import annotations
 
@@ -14,8 +16,14 @@ import torch
 
 from ...utils.misc import safe_sqrt
 from ..base import ProxFn
-from .denoisers import Denoiser, DeepTVDenoiser, FFDNetColorDenoiser, TVDenoiser
+from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, FFDNetColorDenoiser,
+                        FFDNetDenoiser, TVDenoiser)
 from .hub import find_weights as _find_weights
+
+PORTED_KINDS = ("tv", "ffdnet", "tiny_ffdnet", "res_ffdnet", "res_ffdnet_tv", "distilled_gray",
+                "distilled_gray_tv", "ffdnet_color", "tiny_ffdnet_color", "res_ffdnet_color",
+                "res_ffdnet_color_tv", "distilled_color", "distilled_color_tv",
+                "distilled_color_tv_bf16")
 
 
 def find_weights(filename: str, kind: Optional[str] = None) -> Optional[str]:
@@ -31,9 +39,35 @@ def find_weights(filename: str, kind: Optional[str] = None) -> Optional[str]:
 
 
 def get_denoiser(kind: str) -> Denoiser:
-    """Denoiser registry keyed by name."""
+    """Denoiser registry keyed by name (``PORTED_KINDS``)."""
     if kind == "tv":
         return TVDenoiser()
+    if kind == "ffdnet":  # no shipped weights: runs untrained, with a warning
+        return FFDNetDenoiser(ckpt_path=find_weights("ffdnet_gray.pth", kind))
+    if kind == "tiny_ffdnet":
+        return FFDNetDenoiser(ckpt_path=find_weights("tiny_ffdnet_gray.msgpack", kind),
+                              nc=32, nb=8)
+    if kind == "res_ffdnet":
+        return FFDNetDenoiser(ckpt_path=find_weights("res_ffdnet_gray.msgpack", kind),
+                              nc=64, nb=10, residual=True)
+    if kind == "res_ffdnet_tv":
+        return DeepTVDenoiser(get_denoiser("res_ffdnet"), weight=0.4)
+    if kind == "distilled_gray":
+        # gray student distilled from the x8 res_ffdnet teacher
+        return FFDNetDenoiser(ckpt_path=find_weights("distilled_ffdnet_gray.msgpack", kind),
+                              nc=64, nb=10, residual=True)
+    if kind == "distilled_gray_tv":
+        return DeepTVDenoiser(get_denoiser("distilled_gray"), weight=0.4)
+    if kind == "ffdnet_color":  # no shipped weights: runs untrained, with a warning
+        return FFDNetColorDenoiser(ckpt_path=find_weights("ffdnet_color.pth", kind))
+    if kind == "tiny_ffdnet_color":
+        return FFDNetColorDenoiser(ckpt_path=find_weights("tiny_ffdnet_color.msgpack", kind),
+                                   nc=32, nb=8)
+    if kind == "res_ffdnet_color":
+        return FFDNetColorDenoiser(ckpt_path=find_weights("res_ffdnet_color.msgpack", kind),
+                                   nc=96, nb=10, residual=True)
+    if kind == "res_ffdnet_color_tv":
+        return DeepTVDenoiser(get_denoiser("res_ffdnet_color"), weight=0.5)
     if kind == "distilled_color":
         # single color FFDNet student distilled from an x8 two-net ensemble
         return FFDNetColorDenoiser(
@@ -42,16 +76,24 @@ def get_denoiser(kind: str) -> Denoiser:
     if kind == "distilled_color_tv":
         # the flagship prior: 0.6 * distilled FFDNet + 0.4 * TV (10 iterations)
         return DeepTVDenoiser(get_denoiser("distilled_color"), weight=0.6)
+    if kind == "distilled_color_tv_bf16":
+        # the flagship with its network in bfloat16; TV and the fusion in float32
+        return DeepTVDenoiser(BF16Denoiser(get_denoiser("distilled_color")), weight=0.6)
     raise KeyError(f"unknown or not yet ported denoiser '{kind}' "
-                   "(ported: 'tv', 'distilled_color', 'distilled_color_tv')")
+                   f"(ported: {', '.join(PORTED_KINDS)})")
 
 
 class deep_prior(ProxFn):
-    def __init__(self, linop, denoiser: Union[str, Denoiser] = "distilled_color_tv",
+    """``x8=True`` wraps the denoiser in the dihedral self-ensemble
+    ``Augment`` (eight denoiser calls per prox)."""
+
+    def __init__(self, linop, denoiser: Union[str, Denoiser] = "ffdnet", x8: bool = False,
                  clamp: bool = False, sqrt: bool = False):
         super().__init__(linop)
         self.name = denoiser if isinstance(denoiser, str) else type(denoiser).__name__
         self.denoiser = get_denoiser(denoiser) if isinstance(denoiser, str) else denoiser
+        if x8:
+            self.denoiser = Augment(self.denoiser)
         self.clamp = clamp
         self.sqrt = sqrt
 

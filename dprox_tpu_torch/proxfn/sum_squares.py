@@ -1,9 +1,9 @@
 """Quadratic proxfns and the least-squares x-update engine.
 
-Counterpart of dprox_tpu/proxfn/sum_squares.py (``sum_squares``,
-``least_squares`` with ``prepare`` / ``solve_direct`` / ``solve_cg`` /
-``_freq_xupdate``). The ``least_squares`` solve is the hot path of every
-proximal algorithm:
+Counterpart of dprox_tpu/proxfn/sum_squares.py (``sum_squares`` with
+``grad``, ``weighted_sum_squares``, ``least_squares`` with ``prepare`` /
+``solve_direct`` / ``solve_cg`` / ``_freq_xupdate``). The
+``least_squares`` solve is the hot path of every proximal algorithm:
 
 * (freq-)diagonalizable stacked operator -> closed-form division, the
   frequency case as batched 2-D FFTs around the ``freq_divide`` kernel
@@ -12,8 +12,8 @@ proximal algorithm:
   implicit gradients, preconditioned in the frequency domain when the
   operator tree has a circulant surrogate.
 
-``ext_sum_squares``, ``weighted_sum_squares`` and ``sum_squares.grad``
-are not ported yet.
+``ext_sum_squares`` (the fused fast proxes) comes with ROADMAP Queue 1
+items 3 and 4.
 """
 from __future__ import annotations
 
@@ -137,6 +137,57 @@ class sum_squares(ProxFn):
     def _prox(self, v, lam, params=None, step=None):
         return v / (1.0 + 2.0 * lam)
 
+    def grad(self, x: Array, params: Optional[Params] = None) -> Array:
+        """K^T (K x - b): the gradient role in PGD."""
+        var = self.linop.variables[0]
+        off = self.offset({var.name: tuple(x.shape)}, params)
+        tmp = self.dag_forward(x, params)
+        if off is not None:
+            tmp = tmp - off
+        return self.dag_adjoint(tmp, params)
+
+
+class weighted_sum_squares(sum_squares):
+    """||A x - b||^2 with a (freq-)diagonal ``weight`` A and a closed-form
+    prox; the absorb pass makes one of ``sum_squares(mosaic(x), b)``.
+
+    The frequency prox builds its numerator as conj(H) F(b) + lam F(v) (no
+    ifft -> fft round trip of b, as in ``least_squares.prepare``) and
+    divides in the ``freq_divide`` kernel. Its ``prox`` replaces the
+    modifiers of ``ProxFn.prox``, as in the JAX package.
+    """
+
+    def __init__(self, linop: LinOp, weight: LinOp, b, eps: float = 0.0):
+        super().__init__(linop, b, eps)
+        self.weight = weight
+        if weight.is_diag(freq=False):
+            self.freq = False
+        elif weight.is_diag(freq=True):
+            self.freq = True
+        else:
+            raise ValueError("weight must be (freq-)diagonalizable")
+
+    def to(self, device):
+        super().to(device)
+        self.weight.to(device)
+        return self
+
+    def Ktb(self, params: Optional[Params]):
+        from ..linop.evaluate import adjoint as linop_adjoint
+
+        return linop_adjoint(self.weight, self.unwrap_b(params), params)
+
+    def prox(self, v, lam, params=None, step=None, offset=None):
+        lam = expand_to_bchw(torch.as_tensor(lam, dtype=v.dtype, device=v.device))
+        if not self.freq:
+            diag = self.weight.gram_diag(v.shape, params, freq=False)
+            return (self.Ktb(params) + lam * v) / (diag + lam)
+        diag = self.weight.gram_diag(v.shape, params, freq=True)
+        H = self.weight.diag(v.shape, params, freq=True)
+        num = torch.conj(H) * _fftn2(self.unwrap_b(params)) + lam * _fftn2(v)
+        return _ifftn2(freq_divide(num.to(torch.complex64), diag.to(torch.float32),
+                                   lam.to(torch.float32), self.eps)).real.to(v.dtype)
+
 
 class least_squares(ProxFn):
     """Stacked-quadratic x-update with direct (spatial or frequency
@@ -254,10 +305,12 @@ class least_squares(ProxFn):
               params: Optional[Params] = None, eps: float = 1e-7,
               var_shapes=None, prepared=None, warm=None) -> Array:
         """``warm``: previous iterate to warm-start the CG path (the direct
-        path ignores it; no gradient flows through the warm start)."""
-        ref = v if v is not None else (b[0] if b else None)
+        path ignores it; no gradient flows through the warm start). Without
+        psi terms (``b == []``) and ``v`` the x-update is the quadratic
+        terms' own minimizer, and ``warm`` fixes the device."""
+        ref = v if v is not None else (b[0] if b else warm)
         if ref is None:
-            raise ValueError("need b or v for shape inference")
+            raise ValueError("need b, v or warm for shape inference")
         rho = expand_to_bchw(torch.as_tensor(rho, dtype=torch.float32, device=ref.device))
         if self.diagonalizable or self.freq_diagonalizable:
             return self.solve_direct(b, rho, v, params, eps, var_shapes, prepared)

@@ -106,12 +106,18 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
 
 def ffdnet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """FFDNet params (``params/Conv_i/Conv_0/{kernel,bias}``, HWIO) ->
-    ``models.ffdnet.FFDNet`` state dict (``convs.i.{weight,bias}``, OIHW)."""
+    ``models.ffdnet.FFDNet`` state dict (``convs.i.{weight,bias}``, OIHW),
+    for any in_nc (gray nets have in_nc = 1: 4 + 1 input channels).
+
+    ``tree`` is what ``load_flax_msgpack`` returns, or the JAX package's
+    params as numpy arrays (``jax.tree.map(np.asarray, params)``); each
+    leaf is copied, so the state dict shares no memory with ``tree``."""
     params = tree["params"]
     sd = {}
     for i in range(len(params)):
         layer = params[f"Conv_{i}"]["Conv_0"]
+        kernel = np.asarray(layer["kernel"], np.float32)
         sd[f"convs.{i}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(layer["kernel"].transpose(3, 2, 0, 1)))
-        sd[f"convs.{i}.bias"] = torch.from_numpy(layer["bias"])
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        sd[f"convs.{i}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
     return sd

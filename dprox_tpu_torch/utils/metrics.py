@@ -1,4 +1,5 @@
-"""Image quality metrics (counterpart of dprox_tpu/utils/metrics.py::psnr).
+"""Image quality metrics (counterpart of dprox_tpu/utils/metrics.py: mse,
+psnr, ssim).
 
 Metrics run host-side in float64 on HWC, CHW or BCHW inputs in [0, 1].
 """
@@ -32,3 +33,34 @@ def psnr(output, target, data_range: float = 1.0) -> float:
     if m == 0:
         return float("inf")
     return float(10.0 * np.log10(data_range**2 / m))
+
+
+def _ssim_2d(img1: np.ndarray, img2: np.ndarray, data_range: float = 1.0) -> float:
+    """SSIM of two 2-D images with a 7x7 uniform window and the unbiased
+    covariance normalization (skimage's defaults), border cropped."""
+    from scipy.ndimage import uniform_filter
+
+    C1 = (0.01 * data_range) ** 2
+    C2 = (0.03 * data_range) ** 2
+    win = 7
+    mu1 = uniform_filter(img1, win)
+    mu2 = uniform_filter(img2, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    n = win * win
+    cov_norm = n / (n - 1)
+    sigma1_sq = cov_norm * (uniform_filter(img1 * img1, win) - mu1_sq)
+    sigma2_sq = cov_norm * (uniform_filter(img2 * img2, win) - mu2_sq)
+    sigma12 = cov_norm * (uniform_filter(img1 * img2, win) - mu1_mu2)
+    num = (2 * mu1_mu2 + C1) * (2 * sigma12 + C2)
+    den = (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
+    pad = (win - 1) // 2
+    return float((num / den)[pad:-pad, pad:-pad].mean())
+
+
+def ssim(output, target, data_range: float = 1.0) -> float:
+    """Mean SSIM over the channels (HWC after ``_pair``)."""
+    o, t = _pair(output, target)
+    if o.ndim == 2:
+        return _ssim_2d(o, t, data_range)
+    return float(np.mean([_ssim_2d(o[..., c], t[..., c], data_range)
+                          for c in range(o.shape[-1])]))

@@ -24,9 +24,10 @@ def resolve_device(device="cuda") -> torch.device:
 def to_tensor(x, batch: bool = False, device=None) -> torch.Tensor:
     """Convert to a float/complex tensor, optionally adding batch dims.
 
-    HWC (C in {1,3}) -> CHW; then unsqueeze to BCHW if ndim < 4
-    (dprox_tpu/utils/misc.py::to_jax_array). ``device=None`` keeps a
-    tensor where it is and puts numpy data on the CPU.
+    HWC (C in {1,3}) -> CHW; then one leading axis if ndim < 4, as
+    dprox_tpu/utils/misc.py::to_jax_array adds it (a 2-D matrix becomes
+    [1, H, W], which ``Algorithm._restore_shape`` undoes). ``device=None``
+    keeps a tensor where it is and puts numpy data on the CPU.
     """
     out = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     if device is not None:
@@ -34,7 +35,7 @@ def to_tensor(x, batch: bool = False, device=None) -> torch.Tensor:
     if batch:
         if out.ndim == 3 and out.shape[2] in (1, 3):
             out = out.permute(2, 0, 1)
-        while out.ndim < 4:
+        if out.ndim < 4:
             out = out[None]
     return out
 

@@ -847,3 +847,75 @@ def test_unrolled_solve_gradient_on_cuda_matches_cpu(cuda, prior):
     assert counts["fused_admm_update" if prior == "norm1" else "tv_denoise_chw"] == 5
     for a, c in zip(grads["cuda"], grads["cpu"]):
         assert float(c.abs().max()) > 0 and _rel(a.double(), c.double()) <= 1e-3
+
+
+# --------------------------------------------------------------------------- #
+# The prior family and the other solvers on the card
+# --------------------------------------------------------------------------- #
+
+class _PlainTV(dp.proxfn.pnp.TVDenoiser):
+    """TVDenoiser with the kernel's plain version in place of the kernel."""
+
+    def denoise(self, x, sigma):
+        B, C, H, W = x.shape
+        lam = torch.as_tensor(sigma, dtype=x.dtype, device=x.device).reshape(-1)
+        out = kernels.tv_denoise_chw_plain(x.reshape(B * C, H, W), lam, self.iter_num)
+        return out.reshape(B, C, H, W)
+
+
+def test_x8_tv_both_orientations_equal_the_plain_version(cuda):
+    """Under x8 a 3x384x512 input reaches the TV kernel as 384x512 and as
+    512x384 planes; each call, and the x8 average, equals the plain
+    version's bits. Eight launches per x8 call."""
+    from dprox_tpu_torch.proxfn.pnp import Augment, TVDenoiser
+
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.rand(1, 3, 384, 512).astype(np.float32)).to(cuda)
+    sigma = torch.tensor([0.05], device=cuda)
+    for k in range(2):
+        xr = torch.rot90(x, k, dims=(-2, -1))
+        got = TVDenoiser(10).denoise(xr, sigma)
+        assert torch.equal(got, _PlainTV(10).denoise(xr, sigma))
+    before = kernels.tv_denoise_chw.launches
+    got = Augment(TVDenoiser(10)).denoise(x, sigma)
+    assert kernels.tv_denoise_chw.launches == before + 8
+    assert torch.equal(got, Augment(_PlainTV(10)).denoise(x, sigma))
+
+
+def test_bf16_denoiser_on_cuda_matches_cpu(cuda):
+    """cuDNN and oneDNN round bf16 convolutions differently: within two
+    bf16 units in the last place at 1.0 (2**-6)."""
+    from dprox_tpu_torch.proxfn.pnp import get_denoiser
+
+    x = torch.from_numpy(np.random.RandomState(9).rand(1, 3, 64, 64).astype(np.float32))
+    sigma = torch.tensor([0.05])
+    outs = {}
+    for device in ("cpu", "cuda"):
+        den = get_denoiser("distilled_color_tv_bf16").to(device)
+        with torch.no_grad():
+            outs[device] = den.denoise(x.to(device), sigma.to(device)).cpu()
+        assert outs[device].dtype == torch.float32
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("method", ["admm", "ladmm", "admm_vxu", "hqs", "pc", "pgd", "cadmm"])
+@pytest.mark.parametrize("prior", ["nonneg", "tv"])
+def test_one_iteration_of_each_solver_on_cuda_matches_cpu(cuda, method, prior):
+    img = imaging._synthetic_face(512, 512)[224:288, 224:320]
+    psf = imaging.point_spread_function(15, 5)
+    b = imaging.blurring(dp.tensor(img, batch=True), psf)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        reg = dp.nonneg(x) if prior == "nonneg" else dp.deep_prior(x, "tv")
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b), reg], method, device=device)
+        kernels.reset_launches()
+        outs[device] = solver.solve(x0=b, max_iter=1, rhos=0.05, lams=0.01).cpu()
+        counts = kernels.launch_counts()
+        if device == "cuda":
+            assert counts["freq_divide"] == (0 if method == "pgd" else 1)
+            assert counts["tv_denoise_chw"] == (prior == "tv")
+            assert counts["fused_admm_update"] == (method == "admm" and prior == "nonneg")
+        else:
+            assert not any(counts.values())
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-5
