@@ -148,12 +148,15 @@ JAX_CPU_ALGOS_PSNR_X = {"admm_nonneg": 25.890694149953802, "ladmm_nonneg": 25.89
                         "hqs_distilled_color_tv": 28.507916177775027,
                         "admm_vxu_distilled_color_tv": 28.52154720381231,
                         "problem_nonneg": 25.890694149953802}
-# A bfloat16 network rounds its activations to 8 bits of mantissa, and
-# cuDNN's bf16 convolutions round their sums otherwise than XLA-CPU's, so
-# the bf16 flagship's denoiser outputs differ by a unit in the last bf16
-# place between the two (2**-8 relative) where float32 outputs agree to
-# 1e-6; the solve feeds those back for 48 iterations.
-PSNR_TOL_BF16_DB = 0.2
+# The bf16 limit sits between two readings on this observation: the bf16
+# flagship on an H100 (80GB HBM3, 700 W) was 4.7e-4 dB below its JAX-CPU
+# value (cuDNN's and XLA-CPU's bf16 convolutions round their sums
+# differently, and the solve feeds the denoiser's outputs back for 48
+# iterations); the float32 flagship at the same settings on the CPU
+# (JAX_CPU_FLOAT32_AT_BF16_SETTINGS, from the same script) is 1.96e-3 dB
+# below it, so a bf16 kind that silently stayed in float32 fails the gate.
+PSNR_TOL_BF16_DB = 0.001
+JAX_CPU_FLOAT32_AT_BF16_SETTINGS = 28.524274948115913
 LUMA = np.array([0.299, 0.587, 0.114])  # ITU-R BT.601 luminance weights
 
 # The LP phase: synthetic_cep_model(512, 16) in float32. The values below were
@@ -1667,6 +1670,8 @@ def phase_family(dp, kernels, dev, card, flagship_its):
                    statistic="median of 3 best-of-3",
                    **_iteration_ms(solver, ob, rhos[0], sigmas[0]))
         if name.endswith("bf16"):
+            rec["float32_stand_in_gap_db"] = (JAX_CPU_FLOAT32_AT_BF16_SETTINGS
+                                              - JAX_CPU_FAMILY_PSNR_X[name])
             rec["float32_flagship_its_per_sec"] = flagship_its
             rec["its_per_sec_over_float32_flagship"] = rec["its_per_sec"] / flagship_its
         solves[name] = rec

@@ -14,6 +14,7 @@ import torch
 
 from ..linop.base import LinOp
 from ..linop.evaluate import adjoint as lin_adjoint, eval as lin_eval
+from ..utils.misc import resolve_device
 
 
 def _rademacher(shape, generator, device):
@@ -23,12 +24,14 @@ def _rademacher(shape, generator, device):
 
 def stochastic_equilibrate(op: LinOp, shape, params=None, iters: int = 20,
                            samples: int = 4, generator: Optional[torch.Generator] = None,
-                           alpha: float = 1.0):
+                           alpha: float = 1.0, device="cuda"):
     """Scalings d (input space) and e (output space) such that
     diag(e) K diag(d) is roughly norm-balanced: each iteration estimates
-    |K| row and column sums with Rademacher probes through K and K^T."""
+    |K| row and column sums with Rademacher probes through K and K^T.
+    Runs on ``device`` (moving the operator's data there)."""
     g = generator if generator is not None else torch.Generator().manual_seed(0)
-    dev = op.device
+    dev = resolve_device(device)
+    op.to(dev)
     Kx = lin_eval(op, torch.ones(tuple(shape), dtype=torch.float32, device=dev), params)
     out_shape = Kx.shape
     d = torch.ones(tuple(shape), dtype=torch.float32, device=dev)

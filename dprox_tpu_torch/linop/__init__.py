@@ -3,6 +3,7 @@ from .base import (LinOp, Variable, Constant, Placeholder, scale, split, sum, vs
 from .ops import conv, grad, mosaic, mul_elementwise
 from .constraints import matmul, equality, less
 from .evaluate import eval, adjoint, gram, validate, est_norm
+from ..utils.misc import resolve_device
 
 # Compatibility names of the JAX package (dprox_tpu/linop/__init__.py).
 # Shared subexpressions need no copy nodes under functional evaluation, so
@@ -10,11 +11,13 @@ from .evaluate import eval, adjoint, gram, validate, est_norm
 
 
 def est_CompGraph_norm(op, tol: float = 1e-3, try_fast_norm: bool = False,
-                       shape=None, **kwargs):
-    """``est_norm`` under the reference's name and signature; ``tol`` and
+                       shape=None, device="cuda", **kwargs):
+    """``est_norm`` under the reference's name and signature, on
+    ``device`` (moving the operator's data there); ``tol`` and
     ``try_fast_norm`` are accepted and unused (the power iteration runs its
     fixed number of iterations)."""
     del tol, try_fast_norm
+    op.to(resolve_device(device))
     if shape is not None:
         kwargs["shape"] = shape
     return est_norm(op, **kwargs)

@@ -20,11 +20,6 @@ from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, FFDNetC
                         FFDNetDenoiser, TVDenoiser)
 from .hub import find_weights as _find_weights
 
-PORTED_KINDS = ("tv", "ffdnet", "tiny_ffdnet", "res_ffdnet", "res_ffdnet_tv", "distilled_gray",
-                "distilled_gray_tv", "ffdnet_color", "tiny_ffdnet_color", "res_ffdnet_color",
-                "res_ffdnet_color_tv", "distilled_color", "distilled_color_tv",
-                "distilled_color_tv_bf16")
-
 
 def find_weights(filename: str, kind: Optional[str] = None) -> Optional[str]:
     """Path of a shipped weight file; warns when it is missing, since the
@@ -34,53 +29,53 @@ def find_weights(filename: str, kind: Optional[str] = None) -> Optional[str]:
         warnings.warn(
             f"weights '{filename}'{f' for denoiser {kind!r}' if kind else ''} "
             "not found in weights/ — the denoiser will run with "
-            "RANDOM-INITIALIZED parameters.", stacklevel=3)
+            "RANDOM-INITIALIZED parameters.", stacklevel=4)
     return path
+
+
+# Denoiser registry: kind -> constructor. ``ffdnet`` and ``ffdnet_color``
+# have no shipped weights and run untrained, with a warning.
+_REGISTRY = {
+    "tv": lambda kind: TVDenoiser(),
+    "ffdnet": lambda kind: FFDNetDenoiser(ckpt_path=find_weights("ffdnet_gray.pth", kind)),
+    "tiny_ffdnet": lambda kind: FFDNetDenoiser(
+        ckpt_path=find_weights("tiny_ffdnet_gray.msgpack", kind), nc=32, nb=8),
+    "res_ffdnet": lambda kind: FFDNetDenoiser(
+        ckpt_path=find_weights("res_ffdnet_gray.msgpack", kind), nc=64, nb=10, residual=True),
+    "res_ffdnet_tv": lambda kind: DeepTVDenoiser(get_denoiser("res_ffdnet"), weight=0.4),
+    # gray student distilled from the x8 res_ffdnet teacher
+    "distilled_gray": lambda kind: FFDNetDenoiser(
+        ckpt_path=find_weights("distilled_ffdnet_gray.msgpack", kind),
+        nc=64, nb=10, residual=True),
+    "distilled_gray_tv": lambda kind: DeepTVDenoiser(get_denoiser("distilled_gray"), weight=0.4),
+    "ffdnet_color": lambda kind: FFDNetColorDenoiser(
+        ckpt_path=find_weights("ffdnet_color.pth", kind)),
+    "tiny_ffdnet_color": lambda kind: FFDNetColorDenoiser(
+        ckpt_path=find_weights("tiny_ffdnet_color.msgpack", kind), nc=32, nb=8),
+    "res_ffdnet_color": lambda kind: FFDNetColorDenoiser(
+        ckpt_path=find_weights("res_ffdnet_color.msgpack", kind), nc=96, nb=10, residual=True),
+    "res_ffdnet_color_tv": lambda kind: DeepTVDenoiser(get_denoiser("res_ffdnet_color"),
+                                                       weight=0.5),
+    # single color FFDNet student distilled from an x8 two-net ensemble
+    "distilled_color": lambda kind: FFDNetColorDenoiser(
+        ckpt_path=find_weights("distilled_ffdnet_color.msgpack", kind),
+        nc=96, nb=10, residual=True),
+    # the flagship prior: 0.6 * distilled FFDNet + 0.4 * TV (10 iterations)
+    "distilled_color_tv": lambda kind: DeepTVDenoiser(get_denoiser("distilled_color"),
+                                                      weight=0.6),
+    # the flagship with its network in bfloat16; TV and the fusion in float32
+    "distilled_color_tv_bf16": lambda kind: DeepTVDenoiser(
+        BF16Denoiser(get_denoiser("distilled_color")), weight=0.6),
+}
+PORTED_KINDS = tuple(_REGISTRY)
 
 
 def get_denoiser(kind: str) -> Denoiser:
     """Denoiser registry keyed by name (``PORTED_KINDS``)."""
-    if kind == "tv":
-        return TVDenoiser()
-    if kind == "ffdnet":  # no shipped weights: runs untrained, with a warning
-        return FFDNetDenoiser(ckpt_path=find_weights("ffdnet_gray.pth", kind))
-    if kind == "tiny_ffdnet":
-        return FFDNetDenoiser(ckpt_path=find_weights("tiny_ffdnet_gray.msgpack", kind),
-                              nc=32, nb=8)
-    if kind == "res_ffdnet":
-        return FFDNetDenoiser(ckpt_path=find_weights("res_ffdnet_gray.msgpack", kind),
-                              nc=64, nb=10, residual=True)
-    if kind == "res_ffdnet_tv":
-        return DeepTVDenoiser(get_denoiser("res_ffdnet"), weight=0.4)
-    if kind == "distilled_gray":
-        # gray student distilled from the x8 res_ffdnet teacher
-        return FFDNetDenoiser(ckpt_path=find_weights("distilled_ffdnet_gray.msgpack", kind),
-                              nc=64, nb=10, residual=True)
-    if kind == "distilled_gray_tv":
-        return DeepTVDenoiser(get_denoiser("distilled_gray"), weight=0.4)
-    if kind == "ffdnet_color":  # no shipped weights: runs untrained, with a warning
-        return FFDNetColorDenoiser(ckpt_path=find_weights("ffdnet_color.pth", kind))
-    if kind == "tiny_ffdnet_color":
-        return FFDNetColorDenoiser(ckpt_path=find_weights("tiny_ffdnet_color.msgpack", kind),
-                                   nc=32, nb=8)
-    if kind == "res_ffdnet_color":
-        return FFDNetColorDenoiser(ckpt_path=find_weights("res_ffdnet_color.msgpack", kind),
-                                   nc=96, nb=10, residual=True)
-    if kind == "res_ffdnet_color_tv":
-        return DeepTVDenoiser(get_denoiser("res_ffdnet_color"), weight=0.5)
-    if kind == "distilled_color":
-        # single color FFDNet student distilled from an x8 two-net ensemble
-        return FFDNetColorDenoiser(
-            ckpt_path=find_weights("distilled_ffdnet_color.msgpack", kind),
-            nc=96, nb=10, residual=True)
-    if kind == "distilled_color_tv":
-        # the flagship prior: 0.6 * distilled FFDNet + 0.4 * TV (10 iterations)
-        return DeepTVDenoiser(get_denoiser("distilled_color"), weight=0.6)
-    if kind == "distilled_color_tv_bf16":
-        # the flagship with its network in bfloat16; TV and the fusion in float32
-        return DeepTVDenoiser(BF16Denoiser(get_denoiser("distilled_color")), weight=0.6)
-    raise KeyError(f"unknown or not yet ported denoiser '{kind}' "
-                   f"(ported: {', '.join(PORTED_KINDS)})")
+    if kind not in _REGISTRY:
+        raise KeyError(f"unknown or not yet ported denoiser '{kind}' "
+                       f"(ported: {', '.join(PORTED_KINDS)})")
+    return _REGISTRY[kind](kind)
 
 
 class deep_prior(ProxFn):

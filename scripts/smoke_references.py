@@ -3,7 +3,8 @@
 
 Runs the JAX package (dprox_tpu) on the CPU on the observations the
 phases give the port, and prints one JSON object of PSNRs (dB) keyed as
-chip_smoke.py's JAX_CPU_FAMILY_PSNR_X and JAX_CPU_ALGOS_PSNR_X read them.
+chip_smoke.py's JAX_CPU_FAMILY_PSNR_X and JAX_CPU_ALGOS_PSNR_X read them
+(family's distilled_color_tv is its JAX_CPU_FLOAT32_AT_BF16_SETTINGS).
 Run from the repository root (about a minute on 8 cores):
 
     JAX_PLATFORMS=cpu python scripts/smoke_references.py
@@ -59,7 +60,9 @@ def main():
     fam = out["family"]
     fam["distilled_color_tv_x8"] = metrics.psnr(solve(
         prior("distilled_color_tv", x8=True), "admm", b, max_iter=24, rhos=r24, lams=s24), img)
-    for kind in ("distilled_color_tv_bf16", "res_ffdnet_color_tv"):
+    # distilled_color_tv: the float32 flagship at the bf16 kind's settings,
+    # what a bf16 kind that stayed in float32 would reach
+    for kind in ("distilled_color_tv_bf16", "res_ffdnet_color_tv", "distilled_color_tv"):
         fam[kind] = metrics.psnr(solve(prior(kind), "admm", b, max_iter=48, rhos=r48,
                                        lams=s48), img)
     gimg, _, gb = observation(True)

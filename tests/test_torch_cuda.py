@@ -919,3 +919,25 @@ def test_one_iteration_of_each_solver_on_cuda_matches_cpu(cuda, method, prior):
         else:
             assert not any(counts.values())
     assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-5
+
+
+def test_equilibrate_and_norm_estimate_run_on_cuda_as_on_cpu(cuda):
+    """Both default to the card. The probes come from the same CPU
+    generator on either device. On a diagonal operator every probe gives
+    the same magnitudes, so the scalings agree to 1e-6 relative; the
+    power iteration through a convolution (FFTs on both devices) to 1e-4."""
+    w = torch.from_numpy(np.random.RandomState(2).uniform(0.5, 4.0, (1, 1, 8, 8))
+                         .astype(np.float32))
+    psf = imaging.point_spread_function(5, 2)
+    out = {}
+    for device in ("cpu", "cuda"):
+        kw = {} if device == "cuda" else {"device": "cpu"}
+        d, e = dp.algo.stochastic_equilibrate(dp.mul_elementwise(dp.Variable(), w), (1, 1, 8, 8),
+                                              iters=4, samples=3, **kw)
+        assert d.device.type == e.device.type == device
+        norm = dp.linop.est_CompGraph_norm(dp.conv(dp.Variable(), psf), shape=(1, 1, 16, 16),
+                                           **kw)
+        out[device] = d.cpu(), e.cpu(), norm
+    for got, ref in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-4 * out["cpu"][2]

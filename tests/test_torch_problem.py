@@ -156,13 +156,16 @@ def test_equilibrate_property_as_jax():
     cannot equal JAX's draws; a fixed seed repeats its scalings."""
     x = dp.Variable()
     op = dp.conv(x, jimaging.fspecial_gaussian(5, 2))
-    d, e = dp.algo.stochastic_equilibrate(op, (1, 1, 16, 16), iters=3, samples=2)
+    d, e = dp.algo.stochastic_equilibrate(op, (1, 1, 16, 16), iters=3, samples=2,
+                                          device="cpu")
     assert tuple(d.shape) == (1, 1, 16, 16) and tuple(e.shape) == (1, 1, 16, 16)
     assert bool(torch.isfinite(d).all()) and bool(torch.isfinite(e).all())
-    d2, e2 = dp.algo.stochastic_equilibrate(op, (1, 1, 16, 16), iters=3, samples=2)
+    d2, e2 = dp.algo.stochastic_equilibrate(op, (1, 1, 16, 16), iters=3, samples=2,
+                                          device="cpu")
     assert torch.equal(d, d2) and torch.equal(e, e2)
     d3, _ = dp.algo.stochastic_equilibrate(op, (1, 1, 16, 16), iters=3, samples=2,
-                                           generator=torch.Generator().manual_seed(1))
+                                           generator=torch.Generator().manual_seed(1),
+                                           device="cpu")
     assert not torch.equal(d, d3)
 
 
@@ -173,6 +176,34 @@ def test_equilibrate_diagonal_operator_matches_jax():
     dj, ej = jdp.algo.stochastic_equilibrate(
         jdp.mul_elementwise(jdp.Variable(), w), (1, 1, 8, 8), iters=4, samples=3)
     dt, et = dp.algo.stochastic_equilibrate(
-        dp.mul_elementwise(dp.Variable(), torch.from_numpy(w)), (1, 1, 8, 8), iters=4, samples=3)
+        dp.mul_elementwise(dp.Variable(), torch.from_numpy(w)), (1, 1, 8, 8), iters=4, samples=3,
+        device="cpu")
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6)
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-6)
+
+
+def _imaging_problem():
+    x = dp.Variable()
+    psf = jimaging.point_spread_function(5, 2)
+    return x, dp.sum_squares(dp.conv(x, psf) - torch.zeros(1, 1, 8, 8)) + dp.nonneg(x)
+
+
+NEW_ENTRY_POINTS = {
+    **{f"compile_{m}": (lambda m=m: dp.compile(_imaging_problem()[1], m))
+       for m in ("ladmm", "admm_vxu", "hqs", "pc", "pgd", "cadmm")},
+    "problem_solve": lambda: dp.Problem(_imaging_problem()[1]).solve(
+        x0=torch.zeros(1, 1, 8, 8), max_iter=1),
+    "problem_lp_solve": lambda: dp.Problem(np.ones(3) @ dp.Variable(), []).solve(verbose=False),
+    "stochastic_equilibrate": lambda: dp.algo.stochastic_equilibrate(
+        dp.conv(dp.Variable(), jimaging.point_spread_function(5, 2)), (1, 1, 8, 8), iters=1),
+    "est_CompGraph_norm": lambda: dp.linop.est_CompGraph_norm(
+        dp.grad(dp.Variable(), 0), shape=(1, 1, 8, 8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_ENTRY_POINTS))
+def test_new_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NEW_ENTRY_POINTS[name]()
