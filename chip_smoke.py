@@ -70,9 +70,22 @@ exits non-zero):
               each PSNR against the JAX package on the CPU, with launch
               counts and one iteration's eager and device time; and the LP
               dispatch dp.Problem(c @ x, [A @ x == b]) against HiGHS.
+11. fast    - the fused fast proxes and complex solver states: CS-MRI
+              (dp.csmri + deep_prior, admm, 24 iterations, real_output) on
+              the 128x128 phantoms of the tests/paper/test_csmri_grid.py
+              cells with distilled_gray_tv and tv, and CustomADMM, the TV
+              kernel once an iteration on the complex state's real part;
+              SISR at full width (dp.Problem(dp.sisr(...) +
+              deep_prior(x, "res_ffdnet_color_tv")), 1x3x512x512, 24
+              iterations) with marginal iterations/s and its stages; the
+              HSI sisr, misr and compress_sensing with 3-D TV (no kernel);
+              each PSNR against the JAX package on the CPU; and the
+              flagship with conv_doe in place of conv against conv's PSNR.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
-kernels per call in a torch.profiler trace of ten calls.
+kernels per call in a torch.profiler trace of ten calls; phase
+check_complex holds freq_divide's complex-divisor entry against its plain
+version and the TV kernel on a complex tensor's real part.
 
 Then one line {"kernels": [...]}, the nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}. float32 convolutions and matmuls
@@ -158,6 +171,40 @@ JAX_CPU_ALGOS_PSNR_X = {"admm_nonneg": 25.890694149953802, "ladmm_nonneg": 25.89
 PSNR_TOL_BF16_DB = 0.001
 JAX_CPU_FLOAT32_AT_BF16_SETTINGS = 28.524274948115913
 LUMA = np.array([0.299, 0.587, 0.114])  # ITU-R BT.601 luminance weights
+
+# The fast phase: PSNRs (dB) of the JAX package on the CPU, printed under
+# "fast" by
+#   JAX_PLATFORMS=cpu python scripts/smoke_references.py
+# on the inputs this phase makes: contrib.csmri.generate_sample(128, lines,
+# sigma) at the cells of tests/paper/test_csmri_grid.py with its noise-
+# adaptive schedule (24 iterations, real_output=True) and CustomADMM at
+# (40, 0.0) (8 iterations, rho 0.2, lam 0.05, TV); SISR on the synthetic
+# face (sr_observation, psf(15, 2), sf 2) through dp.Problem with
+# res_ffdnet_color_tv, log_descent(60, 20, 24); and the mPSNRs of the HSI
+# solves with 3-D TV on synthetic_hsi (24 iterations), whose goldens in
+# tests/paper/test_hsi_grid.py are HSI_GOLDEN_MPSNR (0.2 dB there).
+CSMRI_CELLS = [(50, 0.0), (40, 0.0), (40, 0.05), (30, 0.05)]
+JAX_CPU_FAST_PSNR_X = {
+    "csmri_distilled_gray_tv_50_0.0": 30.75021287439608,
+    "csmri_tv_50_0.0": 25.332006194195003,
+    "csmri_distilled_gray_tv_40_0.0": 30.320940796738455,
+    "csmri_tv_40_0.0": 25.714147513135504,
+    "csmri_distilled_gray_tv_40_0.05": 22.762707558977745,
+    "csmri_tv_40_0.05": 20.976253026727726,
+    "csmri_distilled_gray_tv_30_0.05": 21.209944720468947,
+    "csmri_tv_30_0.05": 19.431169459229245,
+    "csmri_custom_admm_40_0.0": 20.42147499236266,
+    "sisr_res_ffdnet_color_tv": 26.913758997271316,
+    "hsi_sisr": 26.695096534892773,
+    "hsi_misr": 31.919074233678984,
+    "hsi_cs": 30.20639654241175}
+HSI_GOLDEN_MPSNR = {"sisr": 26.70, "misr": 31.92, "cs": 30.21}
+# conv_doe against conv on the flagship in the same call: the same OTF,
+# made on the card in float32 from the PSF (psf2otf_traced) instead of on
+# the host in float64 (psf2otf); they differ by float32 rounding (~1e-7),
+# which moved the PSNR by ~1e-7 dB on the CPU with the TV prior (128^2 and
+# 256^2 crops, 48 iterations)
+CONV_DOE_GAP_DB = 1e-3
 
 # The LP phase: synthetic_cep_model(512, 16) in float32. The values below were
 # computed with the JAX package on the CPU by
@@ -1573,30 +1620,35 @@ def luminance_observation(psf, dev):
     return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (img, b))
 
 
-def _iteration_ms(solver, b, rho, lam):
+def _iteration_ms(solver, b, rho, lam, params=None):
     """One iteration of ``solver`` from its initial state: eager (host
     launch overhead included, as in the solve loop) and device time from a
-    CUDA-graph replay."""
-    aux = solver.prepare_aux(b, {})
-    state = solver.initialize(b, {})
+    CUDA-graph replay. ``params``: the solve's placeholder values, on the
+    device."""
+    params = params or {}
+    aux = solver.prepare_aux(b, params)
+    state = solver.initialize(b, params)
     rho = torch.as_tensor(rho, dtype=torch.float32, device=b.device)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=b.device)
-    step = lambda: solver._iter(state, rho, [lam] * len(solver.psi_fns), 0, {}, aux)  # noqa: E731
+    p_it = dict(params, __step__=0)
+    step = lambda: solver._iter(state, rho, [lam] * len(solver.psi_fns), 0, p_it, aux)  # noqa: E731
     return {"iteration_eager_ms": time_ms(step, 10, 3, graph=False),
             "iteration_device_ms": time_ms(step, 10, 3)}
 
 
-def _gated_solve(kernels, solver, img, b, max_iter, rhos, lams, ref, tol, expected):
+def _gated_solve(kernels, solver, img, b, max_iter, rhos, lams, ref, tol, expected,
+                 **solve_kw):
     """Solve once with the launch counts read around it; returns the
     record. Fails on a bad shape, non-finite values, a PSNR more than
     ``tol`` dB from the JAX-CPU ``ref`` or launch counts other than
-    ``expected`` (the kernels not named there: 0)."""
+    ``expected`` (the kernels not named there: 0). ``solve_kw`` goes to
+    the solve (params, real_output)."""
     from dprox_tpu_torch.utils.metrics import psnr
 
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out = solver.solve(x0=b, max_iter=max_iter, rhos=rhos, lams=lams)
+    out = solver.solve(x0=b, max_iter=max_iter, rhos=rhos, lams=lams, **solve_kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1794,6 +1846,285 @@ def phase_algos(dp, kernels, dev, card):
     return by_path
 
 
+def phase_check_complex(kernels, dev):
+    """freq_divide's complex-divisor entry against its plain version at the
+    main path's shape and odd sizes (a sliced divisor read by strides), and
+    the TV kernel on a complex tensor's real part made contiguous, bit for
+    bit; returns the complex entry's measurements."""
+    rng = np.random.RandomState(8)
+    cases = []
+    for fshape, per_batch, sliced in [((1, 3, 512, 512), False, False),
+                                      ((2, 3, 37, 53), True, False),
+                                      ((1, 3, 64, 33), False, True)]:
+        F = torch.from_numpy((rng.randn(*fshape) + 1j * rng.randn(*fshape))
+                             .astype(np.complex64)).to(dev)
+        dshape = fshape[:-1] + (2 * fshape[-1] - 2,) if sliced else (1,) + fshape[1:]
+        diag = torch.from_numpy((0.5 + rng.rand(*dshape) + 1j * rng.randn(*dshape))
+                                .astype(np.complex64)).to(dev)[..., :fshape[-1]]
+        B = fshape[0]
+        rho = torch.from_numpy((1e-2 * (1 + rng.rand(B if per_batch else 1)))
+                               .astype(np.float32)).to(dev)
+        rho = rho.reshape(-1, 1, 1, 1) if per_batch else rho.reshape(())
+        before = kernels.freq_divide.complex_launches
+        got = kernels.freq_divide(F, diag, rho)
+        ref = kernels.freq_divide_plain(F, diag, rho)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        cases.append({"shape": list(fshape), "rho_per_batch": per_batch,
+                      "diag_strides": diag.stride(), "max_abs_err": err, "max_rel_err": rel,
+                      "bit_equal": torch.equal(got, ref),
+                      "complex_launches": kernels.freq_divide.complex_launches - before})
+        if not (rel <= DIVIDE_REL_TOL and cases[-1]["complex_launches"] == 1):
+            raise AssertionError(f"freq_divide, complex divisor {fshape}: {cases[-1]}")
+        if fshape == (1, 3, 512, 512):
+            main = (F, diag, rho, err)
+
+    # the TV kernel on the real part of a complex 1x128x128 state, as
+    # deep_prior hands it over (the strided view itself is refused)
+    z = torch.from_numpy((rng.rand(1, 128, 128) + 1j * rng.rand(1, 128, 128))
+                         .astype(np.complex64)).to(dev)
+    lam = torch.full((1,), 0.05, device=dev)
+    try:
+        kernels.tv_denoise_chw(z.real, lam, 10)
+        refused = False
+    except ValueError:
+        refused = True
+    y = z.real.contiguous()
+    tv_equal = torch.equal(kernels.tv_denoise_chw(y, lam, 10),
+                           kernels.tv_denoise_chw_plain(y, lam, 10))
+
+    F, diag, rho, err = main
+    n = F.numel()
+    # each input read once (F and diag 8 bytes an element), out written
+    # once; a complex divide takes ~11 float operations an element
+    b = bound(8 * n + 8 * diag.numel() + 4 * rho.numel() + 8 * n, 11 * n)
+    row = {"name": "freq_divide_complex", "route": "cuda",
+           "source": "dprox_tpu_torch/csrc/freq_divide.cu (dprox_freq_divide_c64)",
+           "replaces": "dprox_tpu/ops/pallas_kernels.py:104",
+           "max_abs_err": err, "ms": time_ms(lambda: kernels.freq_divide(F, diag, rho)),
+           "plain_ms": time_ms(lambda: kernels.freq_divide_plain(F, diag, rho)),
+           "bound_ms": b[0], "bound_by": b[1],
+           "library_ms": time_ms(lambda: (F + 1e-7) / (diag + rho + 1e-7))}
+    emit({"phase": "check_complex", "divide_cases": cases, "timing_shape": [1, 3, 512, 512],
+          "eager_ms": time_ms(lambda: kernels.freq_divide(F, diag, rho), graph=False),
+          "measured": row, "tv_on_complex_real_part": {
+              "shape": [1, 128, 128], "strided_view_refused": refused,
+              "contiguous_copy_bit_equal_to_plain": tv_equal}})
+    if not (refused and tv_equal):
+        raise AssertionError(f"TV on a complex state's real part: refused {refused}, "
+                             f"bit-equal {tv_equal}")
+    return [row]
+
+
+def _keys_weights(n_in, n_out):
+    """[n_in, n_out] float64 weights of jax.image.resize(method="cubic")
+    when it upsamples: Keys' kernel (a = -0.5), columns summing to 1."""
+    sample = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None])
+    w = np.where(x >= 2, 0.0, np.where(x >= 1, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0,
+                                       ((1.5 * x - 2.5) * x) * x + 1.0))
+    return w / w.sum(0, keepdims=True)
+
+
+def sr_observation(img, psf, sf):
+    """(y, x0) float32 numpy: ``img`` [1,C,H,W] blurred circularly by
+    ``psf`` in float64, every ``sf``-th pixel, and its cubic upsampling,
+    as scripts/smoke_references.py makes them for the JAX package."""
+    from dprox_tpu_torch.utils.fft import psf2otf
+
+    otf = psf2otf(np.asarray(psf).squeeze(), img.shape[-2:])
+    y = np.real(np.fft.ifft2(otf * np.fft.fft2(img.astype(np.float64))))[..., ::sf, ::sf]
+    h, w = y.shape[-2:]
+    x0 = np.einsum("bchw,hH,wW->bcHW", y, _keys_weights(h, h * sf), _keys_weights(w, w * sf))
+    return y.astype(np.float32), x0.astype(np.float32)
+
+
+def synthetic_hsi(bands=8, size=64):
+    """examples/papers/hsi_suite.py's cube on the synthetic face: [1,8,64,64]
+    bands mixed from its RGB crop, and the [8, 3] spectral response."""
+    from dprox_tpu_torch.utils.imaging import _synthetic_face
+
+    rgb = _synthetic_face(512, 512).transpose(2, 0, 1)[:, :size, :size]
+    ws = np.stack([np.abs([np.cos(0.2 * b), np.sin(0.15 * b) ** 2, 0.5 + 0.5 * np.cos(0.3 * b)])
+                   for b in range(bands)])
+    ws = ws / ws.sum(1, keepdims=True)
+    return np.einsum("bc,chw->bhw", ws, rgb)[None].astype(np.float32), ws
+
+
+def _noisy(a, sigma=0.05):
+    """tests/paper/test_hsi_grid.py's measurement noise."""
+    a = np.asarray(a)
+    return (a + sigma * np.random.RandomState(5).randn(*a.shape)).astype(np.float32)
+
+
+def phase_fast(dp, kernels, dev, card):
+    """The fused fast proxes and complex solver states: CS-MRI on the 128x128
+    phantom (complex k-space state; TV on its real part), SISR at full
+    width through dp.Problem, the HSI fast proxes with 3-D TV, and the
+    flagship with conv_doe."""
+    from dprox_tpu_torch.contrib import csmri
+    from dprox_tpu_torch.proxfn.pnp.denoisers import TVDenoiser
+    from dprox_tpu_torch.utils.imaging import _synthetic_face, point_spread_function
+    from dprox_tpu_torch.utils.metrics import mpsnr, psnr
+
+    on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    solves, by_path = {}, {}
+
+    def csmri_solver(prior):
+        x = dp.Variable()
+        return dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                          + dp.deep_prior(x, prior, sqrt=True), "admm")
+
+    def schedule(sigma, n):  # tests/paper/test_csmri_grid.py's noise-adaptive one
+        return dp.log_descent(30 + 600 * sigma, 5 + 300 * sigma, n, sigma=0.01)
+
+    # CS-MRI: the grid's cells with both priors; each its TV launches only
+    for lines, sigma in CSMRI_CELLS:
+        s = csmri.generate_sample(size=128, num_lines=lines, sigma=sigma)
+        gt = on_dev(s["gt"])
+        for prior in ("distilled_gray_tv", "tv"):
+            name = f"csmri_{prior}_{lines}_{sigma}"
+            rhos, sigmas = schedule(sigma, 24)
+            rec = _gated_solve(kernels, csmri_solver(prior), gt, s["x0"], 24, rhos, sigmas,
+                               JAX_CPU_FAST_PSNR_X[name], PSNR_TOL_DB, {"tv_denoise_chw": 24},
+                               params=s["params"], real_output=True)
+            rec["psnr_zero_filled"] = psnr(np.real(s["x0"]), s["gt"])
+            solves[name] = rec
+            by_path[name] = rec["launches"]
+    # marginal its/s and one iteration at (40, 0) with distilled_gray_tv
+    s = csmri.generate_sample(size=128, num_lines=40)
+    solver = csmri_solver("distilled_gray_tv")
+    rhos, sigmas = schedule(0.0, 48)
+    obs = _marginal(lambda k: solver.solve(x0=s["x0"], max_iter=k, rhos=rhos[:k],
+                                           lams=sigmas[:k], params=s["params"]),
+                    8, 48, reps=3, estimates=3)
+    params = {k: on_dev(v) for k, v in s["params"].items()}
+    rec = solves["csmri_distilled_gray_tv_40_0.0"]
+    rec.update(its_per_sec=statistics.median(obs), obs=obs, span="8-48",
+               statistic="median of 3 best-of-3",
+               **_iteration_ms(solver, solver._prepare_x0(s["x0"]), rhos[0], sigmas[0], params))
+    # contrib.csmri.CustomADMM (prox-first) on cell (40, 0), complex output
+    x = dp.Variable()
+    psi, omega = csmri.CustomADMM.partition(
+        [dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y")),
+         dp.deep_prior(x, "tv")])
+    kernels.reset_launches()
+    out = csmri.CustomADMM(psi, omega).solve(x0=s["x0"], max_iter=8, rhos=0.2, lams=0.05,
+                                             params=s["params"])
+    torch.cuda.synchronize()
+    p_x, ref = psnr(out.real, s["gt"]), JAX_CPU_FAST_PSNR_X["csmri_custom_admm_40_0.0"]
+    solves["csmri_custom_admm_40_0.0"] = {
+        "iterations": 8, "output_dtype": str(out.dtype), "launches": kernels.launch_counts(),
+        "psnr_x": p_x, "jax_cpu_psnr_x": ref, "psnr_gap_db": p_x - ref}
+    by_path["csmri_custom_admm"] = kernels.launch_counts()
+    if not (abs(p_x - ref) <= PSNR_TOL_DB and out.dtype == torch.complex64):
+        raise AssertionError(f"CustomADMM: {solves['csmri_custom_admm_40_0.0']}")
+
+    # SISR at full width: dp.Problem over sisr with res_ffdnet_color_tv
+    img = _synthetic_face(512, 512).transpose(2, 0, 1)[None]
+    psf = point_spread_function(15, 2)
+    y, x0 = sr_observation(img, psf, 2)
+    kernel = np.transpose(psf, (2, 0, 1))[None]
+    x = dp.Variable()
+    prob = dp.Problem(dp.sisr(x, dp.utils.array(y), dp.utils.array(kernel), 2)
+                      + dp.deep_prior(x, "res_ffdnet_color_tv"))
+    rhos, sigmas = dp.log_descent(60, 20, 24)
+    img_d, x0_d = on_dev(img), on_dev(x0)
+    rec = _gated_solve(kernels, prob, img_d, x0_d, 24, rhos, sigmas,
+                       JAX_CPU_FAST_PSNR_X["sisr_res_ffdnet_color_tv"], PSNR_TOL_DB,
+                       {"tv_denoise_chw": 24})
+    rec["psnr_x0"] = psnr(x0, img)
+    solver = dp.compile(prob.objective, "admm")
+    r48, s48 = dp.log_descent(60, 20, 48)
+    obs = _marginal(lambda k: solver.solve(x0=x0_d, max_iter=k, rhos=r48[:k], lams=s48[:k]),
+                    8, 48, reps=3, estimates=3)
+    rho, lam = r48[0].to(dev), s48[0].to(dev)
+    denoiser = solver.psi_fns[0].denoiser
+    sigma = lam.reshape(-1)
+    rec.update(its_per_sec=statistics.median(obs), obs=obs, span="8-48",
+               statistic="median of 3 best-of-3", **_iteration_ms(solver, x0_d, rho, lam),
+               stage_ms={
+                   "ffdnet": time_ms(lambda: denoiser.deep.denoise(x0_d, sigma), 10, 3,
+                                     graph=False),
+                   "tv_branch": time_ms(lambda: denoiser.tv.denoise(x0_d, sigma), 20, 5,
+                                        graph=False),
+                   "x_update": time_ms(lambda: solver.least_square.solve([x0_d], rho), 20, 5,
+                                       graph=False),
+                   "x_update_device": time_ms(lambda: solver.least_square.solve([x0_d], rho),
+                                              20, 5)})
+    solves["sisr_res_ffdnet_color_tv"] = rec
+    by_path["sisr"] = rec["launches"]
+    del solver, prob
+
+    # the HSI fast proxes with 3-D TV (no kernel: plain in both packages)
+    gt, srf = synthetic_hsi()
+    B = gt.shape[1]
+    hwc = lambda a: np.transpose(np.asarray(a)[0], (1, 2, 0))  # noqa: E731
+    for name in ("sisr", "misr", "cs"):
+        x = dp.Variable()
+        if name == "sisr":
+            psf7 = point_spread_function(7, 2)
+            hy, hx0 = sr_observation(gt, psf7, 2)
+            data = dp.sisr(x, dp.utils.array(_noisy(hy)),
+                           dp.utils.array(np.transpose(psf7, (2, 0, 1))[None]), 2)
+            hx0 = _noisy(hx0)
+        elif name == "misr":
+            hb = _noisy(np.einsum("ck,nkp->ncp", srf.T, gt.reshape(1, B, -1)).reshape(1, 3, 64, 64))
+            data = dp.misr(x, dp.utils.array(hb), srf)
+            hx0 = np.repeat(hb.mean(1, keepdims=True), B, axis=1)
+        else:
+            mask = (np.random.RandomState(0).rand(1, B, 64, 64) > 0.5).astype(np.float32)
+            hy = _noisy(np.sum(gt * mask, axis=1, keepdims=True))
+            data = dp.compress_sensing(x, dp.utils.array(mask), dp.utils.array(hy))
+            hx0 = np.repeat(hy / (B // 2), B, axis=1)
+        solver = dp.compile([data, dp.deep_prior(x, TVDenoiser(iter_num=10, use_3dtv=True),
+                                                 sqrt=True)], "admm")
+        rhos, sigmas = dp.log_descent(35 + 300 * 0.05, 10 + 200 * 0.05, 24, sigma=0.05)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = solver.solve(x0=on_dev(hx0), rhos=rhos, lams=sigmas, max_iter=24)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, ref = mpsnr(hwc(out.cpu()), hwc(gt)), JAX_CPU_FAST_PSNR_X[f"hsi_{name}"]
+        rec = {"iterations": 24, "solve_s": seconds, "launches": kernels.launch_counts(),
+               "mpsnr_x": got, "jax_cpu_mpsnr_x": ref, "mpsnr_gap_db": got - ref,
+               "golden_db": HSI_GOLDEN_MPSNR[name]}
+        solves[f"hsi_{name}"] = rec
+        by_path[f"hsi_{name}"] = rec["launches"]
+        if not (abs(got - ref) <= PSNR_TOL_DB and not any(rec["launches"].values())):
+            raise AssertionError(f"HSI {name}: {rec}")
+
+    # the flagship with conv_doe in place of conv: the same OTF made on the
+    # card from the PSF (psf2otf_traced) against the host's float64 one
+    psf5 = point_spread_function(15, 5)
+    fimg, fb = observation(512, psf5, False, dev)
+    rhos, sigmas = dp.log_descent(80, 30, MAIN_ITERS)
+    flag = {}
+    for op in ("conv", "conv_doe"):
+        x = dp.Variable()
+        K = dp.conv(x, psf5) if op == "conv" else dp.conv_doe(x, psf5[..., 0], circular=True)
+        solver = dp.compile([dp.sum_squares(K - fb), dp.deep_prior(x, "distilled_color_tv")],
+                            "admm")
+        kernels.reset_launches()
+        out = solver.solve(x0=fb, max_iter=MAIN_ITERS, rhos=rhos, lams=sigmas)
+        torch.cuda.synchronize()
+        flag[op] = {"psnr_x": psnr(out, fimg), "launches": kernels.launch_counts()}
+        by_path[f"flagship_{op}"] = flag[op]["launches"]
+        del solver
+    flag["psnr_gap_db"] = flag["conv_doe"]["psnr_x"] - flag["conv"]["psnr_x"]
+    solves["flagship_conv_doe"] = flag
+    want = dict.fromkeys(flag["conv"]["launches"], 0) | {"tv_denoise_chw": MAIN_ITERS,
+                                                        "freq_divide": MAIN_ITERS}
+    emit({"phase": "fast", "config": "CS-MRI 1x1x128x128 phantoms (24 it.), SISR 1x3x512x512 "
+          "res_ffdnet_color_tv (24 it.), HSI 1x8x64x64 tv3d (24 it.), flagship with conv_doe "
+          "(48 it.)", "solves": solves, "card": card})
+    if not (abs(flag["psnr_gap_db"]) <= CONV_DOE_GAP_DB and flag["conv"]["launches"] == want
+            and flag["conv_doe"]["launches"] == want):
+        raise AssertionError(f"conv_doe flagship: {flag}")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1812,7 +2143,7 @@ def main() -> int:
           "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     phase_build(kernels)
     measured = (phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
-                + phase_check_bsr(kernels, dev))
+                + phase_check_bsr(kernels, dev) + phase_check_complex(kernels, dev))
     phase_kernels_per_call(kernels, dev)
     solver, b, launches = phase_main(dp, kernels, dev)
     flagship_its = phase_marginal(dp, solver, b, card)
@@ -1825,12 +2156,16 @@ def main() -> int:
     phase_lp_consensus(kernels, dev, card)
     by_path.update(phase_family(dp, kernels, dev, card, flagship_its))
     by_path.update(phase_algos(dp, kernels, dev, card))
+    by_path.update(phase_fast(dp, kernels, dev, card))
     # each kernel's count on the main-path solve that is its own; bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
-    # rows (BSRMat.route), and phase check_bsr holds the tile kernel
+    # rows (BSRMat.route), and phase check_bsr holds the tile kernel; nor
+    # has freq_divide's complex-divisor entry: no path builds a complex
+    # divisor (a BlackBox's gram diagonal is |d|^2), check_complex holds it
     own = {"tv_denoise_chw": "flagship", "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
-           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": None, "csr_matvec": "lp"}
+           "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": None, "csr_matvec": "lp",
+           "freq_divide_complex": None}
     for k in measured:
         path = own[k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in by_path.items()}

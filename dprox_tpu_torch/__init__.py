@@ -38,9 +38,10 @@ from .algo import (ADMM, ADMM_vxu, HQS, Algorithm, LinearizedADMM, PockChambolle
                    ProximalGradientDescent, compile, log_descent, optimize, specialize, train,
                    visualize)
 from .linalg import LinearSolveConfig, linear_solve
-from .linop import (Constant, LinOp, Placeholder, Variable, adjoint, conv, copy, est_CompGraph_norm,
-                    est_norm, eval, grad, gram, mosaic, mul_elementwise, scale, split, sum,
-                    validate, vstack)
-from .proxfn import (ProxFn, deep_prior, get_denoiser, least_squares, nonneg, norm1, norm2,
-                     sum_squares, weighted_sum_squares)
+from .linop import (BlackBox, Constant, LinOp, LinOpFactory, Placeholder, Variable, adjoint, conv,
+                    conv_doe, copy, est_CompGraph_norm, est_norm, eval, grad, gram, mosaic,
+                    mul_color, mul_elementwise, scale, split, sum, validate, vstack)
+from .proxfn import (ProxFn, compress_sensing, csmri, deep_prior, ext_sum_squares, get_denoiser,
+                     least_squares, misr, nonneg, norm1, norm2, phase_ret, sisr, spi, sum_squares,
+                     weighted_sum_squares)
 from .utils.misc import to_tensor as tensor

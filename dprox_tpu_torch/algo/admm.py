@@ -1,13 +1,17 @@
 """ADMM, linearized ADMM and prox-first ADMM as eager iteration steps.
 
 Counterpart of dprox_tpu/algo/admm.py (``ADMM``, ``LinearizedADMM``,
-``ADMM_vxu``). Partition rule: plain ``sum_squares`` go to the omega
-(data) set solved in the x-update; everything else becomes a psi block
-with consensus variables (v_i, u_i). State = (x, v_tuple, u_tuple). In
-``ADMM`` the (v_i, u_i) update of a plain ``nonneg`` or ``norm1`` block
-runs as one ``fused_admm_update`` kernel, which computes exactly what the
-generic prox + dual update computes; the two variants override ``_iter``
-and take the generic route, as in the JAX package.
+``ADMM_vxu``). Partition rule: plain ``sum_squares`` (and at most one
+``ext_sum_squares``) go to the omega (data) set solved in the x-update;
+everything else becomes a psi block with consensus variables (v_i, u_i).
+State = (x, v_tuple, u_tuple), complex64 where the x-update is a fused
+k-space solve (``complex_state``, CS-MRI); prox outputs are cast back to
+the state's dtype. In ``ADMM`` the (v_i, u_i) update of a plain ``nonneg``
+or ``norm1`` block on a real state runs as one ``fused_admm_update``
+kernel, which computes exactly what the generic prox + dual update
+computes (on a complex state such a block raises: torch orders no complex
+numbers); the two variants override ``_iter`` and take the generic route,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from ..linalg import LinearSolveConfig
 from ..ops.kernels import fused_admm_update
 from ..proxfn.base import ProxFn
 from ..proxfn.simple import nonneg, norm1
-from ..proxfn.sum_squares import sum_squares
+from ..proxfn.sum_squares import ext_sum_squares, sum_squares
 from .base import Algorithm
 from .invert import get_least_square_solver
 
@@ -27,7 +31,13 @@ from .invert import get_least_square_solver
 class ADMM(Algorithm):
     @classmethod
     def partition(cls, prox_fns: List[ProxFn]):
-        omega_fns = [fn for fn in prox_fns if type(fn) is sum_squares]
+        omega_fns, have_ext = [], False
+        for fn in prox_fns:
+            if not have_ext and isinstance(fn, ext_sum_squares):
+                omega_fns.append(fn)
+                have_ext = True
+            elif type(fn) is sum_squares:
+                omega_fns.append(fn)
         psi_fns = [fn for fn in prox_fns if fn not in omega_fns]
         return psi_fns, omega_fns
 
@@ -40,6 +50,8 @@ class ADMM(Algorithm):
             linear_solve_config or LinearSolveConfig())
 
     def initialize(self, x0, params, v=None):
+        if getattr(self.least_square, "complex_state", False):
+            x0 = x0.to(torch.complex64)
         if v is None:
             v = tuple(self.K_forward(x0, params))
         u = tuple(torch.zeros_like(e) for e in v)
@@ -54,6 +66,12 @@ class ADMM(Algorithm):
         Kx = self.K_forward(x, params)
         v_new, u_new = [], []
         for i, fn in enumerate(self.psi_fns):
+            if Kx[i].is_complex() and type(fn) in (nonneg, norm1):
+                raise NotImplementedError(
+                    f"{type(fn).__name__} on a complex solver state: torch defines no order "
+                    "on complex numbers (the JAX package's jnp.maximum orders them "
+                    "lexicographically), so neither the fused_admm_update kernel nor a "
+                    "generic prox computes it")
             kind = self._fused_kind(fn, aux.offsets[i])
             if kind is None:
                 vi = fn.prox(Kx[i] + u[i], lam[i], params=params, step=step,

@@ -130,7 +130,16 @@ class Algorithm:
         return rhos, tuple(lam_list)
 
     def _prepare_x0(self, x0):
-        return to_tensor(x0, batch=True, device=self.device).to(torch.float32)
+        """x0 batched on the device, complex64 if complex (a k-space
+        state), else float32. A complex numpy x0 gets leading axes up to
+        4-D, as the JAX package gives it."""
+        if isinstance(x0, np.ndarray) and np.iscomplexobj(x0):
+            if x0.ndim == 3 and x0.shape[2] in (1, 3):
+                x0 = x0.transpose(2, 0, 1)
+            while x0.ndim < 4:
+                x0 = x0[None]
+        x0 = to_tensor(x0, batch=True, device=self.device)
+        return x0.to(torch.complex64 if x0.is_complex() else torch.float32)
 
     @staticmethod
     def _restore_shape(out, orig_shape):
@@ -170,21 +179,26 @@ class Algorithm:
     # ------------------------------------------------------------------ #
 
     def solve(self, x0=None, rhos=None, lams=None, max_iter: int = 24,
-              params: Optional[Params] = None, callback: Optional[Callable] = None):
-        """Run the solver; returns x*. ``callback(iter=, state=, rho=, lam=)``
-        runs after every iteration."""
+              params: Optional[Params] = None, callback: Optional[Callable] = None,
+              real_output: bool = False):
+        """Run the solver; returns x* (its real part with ``real_output``,
+        for a complex state). ``callback(iter=, state=, rho=, lam=)`` runs
+        after every iteration."""
         def on_step(it, prev, new, rho, lam, p_it):
             callback(iter=it, state=new, rho=rho, lam=lam)
 
         state, orig_shape = self._run(x0, rhos, lams, max_iter, params,
                                       on_step if callback is not None else None)
-        return self._restore_shape(state[0], orig_shape)
+        out = self._restore_shape(state[0], orig_shape)
+        return out.real if real_output else out
 
     def solve_with_residuals(self, x0=None, rhos=None, lams=None,
-                             max_iter: int = 24, params: Optional[Params] = None):
+                             max_iter: int = 24, params: Optional[Params] = None,
+                             real_output: bool = True):
         """Solve and record relative primal/dual residual norms per
         iteration; returns ``(x, {'r_primal': [T], 'r_dual': [T]})`` with
-        the residuals as device tensors."""
+        the residuals as device tensors (x real by default, as in the JAX
+        package)."""
         res: Dict[str, list] = {"r_primal": [], "r_dual": []}
 
         def on_step(it, prev, new, rho, lam, p_it):
@@ -197,5 +211,6 @@ class Algorithm:
                 res[k].append(r[k])
 
         state, orig_shape = self._run(x0, rhos, lams, max_iter, params, on_step)
-        return (self._restore_shape(state[0], orig_shape),
+        out = self._restore_shape(state[0], orig_shape)
+        return (out.real if real_output else out,
                 {k: torch.stack(v) if v else torch.zeros(0) for k, v in res.items()})

@@ -11,16 +11,16 @@ identity,
 with sigma_i = lam[i] (dual step) and rho = 1/tau (primal step);
 convergence needs tau * sigma * ||K||^2 <= 1. The x-update solves only
 the omega (data) terms, ``least_squares.solve([], rho, v=v)``, on the
-frequency route where the data operator is circulant. The JAX package's
-fused fast-prox branches (``ext_sum_squares``) come with ROADMAP Queue 1
-item 3.
+frequency route where the data operator is circulant, or, where the data
+term is a fused fast prox (``ext_sum_squares``), its closed-form solve of
+``v``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..linalg import LinearSolveConfig
-from ..proxfn.sum_squares import least_squares, sum_squares, weighted_sum_squares
+from ..proxfn.sum_squares import ext_sum_squares, least_squares
 from ..utils.misc import expand_to_bchw
 from .admm import ADMM
 
@@ -28,18 +28,14 @@ from .admm import ADMM
 class PockChambolle(ADMM):
     def __init__(self, psi_fns, omega_fns, try_diagonalize=True,
                  try_freq_diagonalize=True, linear_solve_config=None, device="cuda"):
-        if any(isinstance(fn, sum_squares) and type(fn) not in (sum_squares, weighted_sum_squares)
-               for fn in omega_fns):
-            raise NotImplementedError(
-                "Pock-Chambolle with a fused fast prox (ext_sum_squares) comes with "
-                "ROADMAP Queue 1 item 3")
         super().__init__(psi_fns, omega_fns, try_diagonalize, try_freq_diagonalize,
                          linear_solve_config, device=device)
         # the x-update resolvent involves only the omega terms:
         # (sum K_q^T K_q + rho I)^-1 (sum K_q^T b_q + rho v)
-        self.least_square = least_squares(
-            self.omega_fns, [], try_diagonalize, try_freq_diagonalize,
-            linear_solve_config=linear_solve_config or LinearSolveConfig())
+        if not isinstance(self.least_square, ext_sum_squares):
+            self.least_square = least_squares(
+                self.omega_fns, [], try_diagonalize, try_freq_diagonalize,
+                linear_solve_config=linear_solve_config or LinearSolveConfig())
 
     def initialize(self, x0, params, v=None):
         z = tuple(torch.zeros_like(e) for e in self.K_forward(x0, params))
@@ -62,7 +58,9 @@ class PockChambolle(ADMM):
             Ktz = Ktz + fn.dag_adjoint(z_new[i], params)
         tau = 1.0 / expand_to_bchw(torch.as_tensor(rho, device=x.device))
         v = x - tau * Ktz
-        if self.omega_fns:
+        if isinstance(self.least_square, ext_sum_squares):
+            x_next = self.least_square.solve([v], rho, params=params)
+        elif self.omega_fns:
             x_next = self.least_square.solve([], rho, v=v, params=params,
                                              var_shapes=self._var_shapes(x),
                                              prepared=aux.lsq)

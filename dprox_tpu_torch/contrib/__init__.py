@@ -1,1 +1,3 @@
-"""Applications built on the port."""
+"""Applications built on the port: CS-MRI (``csmri``) and energy-planning LPs
+(``energy_system``)."""
+from . import csmri

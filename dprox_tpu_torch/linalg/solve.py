@@ -8,8 +8,10 @@ backward pass is a ``torch.autograd.Function``:
               gtheta = vjp_theta(-A(theta, x*))(gb)
 
 so gradients are exact at the solution whatever the solver's iteration
-count, and the solver loop (and the kernels inside it) is never
-differentiated through.
+count, and the solver loop is never differentiated through. With
+``use_analytic_grad=False`` the solve is instead ``cg_unrolled``, a fixed
+number of CG iterations that autograd differentiates step by step (on the
+card through ``bdot``'s own backward).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from .solvers import SOLVERS, pcg
+from .solvers import SOLVERS, cg_unrolled, pcg
 
 Array = torch.Tensor
 
@@ -126,16 +128,20 @@ def linear_solve(A_fn: Callable, b: Array, theta=None,
     ``A_fn(theta, v)`` is the matrix-free matvec; ``theta`` is any nest of
     tuples, lists and dicts holding the parameters that appear inside A
     (rho, learned operator weights, ...). ``Minv_fn(theta, r)`` is an
-    optional preconditioner. The backward pass uses the implicit formula.
-    ``x0`` warm-starts the iteration and gets no gradient: at the solver
-    tolerance the solution does not depend on the initialization.
+    optional preconditioner. With ``config.use_analytic_grad`` the backward
+    pass uses the implicit formula and ``x0`` (a warm start) gets no
+    gradient: at the solver tolerance the solution does not depend on the
+    initialization. Otherwise the solve is ``cg_unrolled`` with the
+    config's ``rtol`` and ``max_iters``, unpreconditioned (``Minv_fn`` is
+    not used), and autograd differentiates through every iteration, as
+    the JAX package does.
     """
     config = config or LinearSolveConfig()
+    theta = () if theta is None else theta
     if not config.use_analytic_grad:
-        raise NotImplementedError(
-            "use_analytic_grad=False (the unrolled, reverse-differentiable CG) comes "
-            "with the specialization slice; the implicit gradient is ported")
-    leaves, rebuild = _flatten(() if theta is None else theta)
+        return cg_unrolled(lambda v: A_fn(theta, v), b, x0=x0, rtol=config.rtol,
+                           max_iters=config.max_iters)
+    leaves, rebuild = _flatten(theta)
     return _ImplicitSolve.apply(config, A_fn, Minv_fn, rebuild, b, x0, *leaves)
 
 

@@ -1,6 +1,7 @@
 from .base import (LinOp, Variable, Constant, Placeholder, scale, split, sum, vstack,
                    cast_to_const)
-from .ops import conv, grad, mosaic, mul_elementwise
+from .ops import (BlackBox, LinOpFactory, conv, conv_doe, grad, mosaic, mul_color,
+                  mul_elementwise)
 from .constraints import matmul, equality, less
 from .evaluate import eval, adjoint, gram, validate, est_norm
 from ..utils.misc import resolve_device

@@ -5,7 +5,8 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
 * ``tv_denoise_chw`` (csrc/tv_denoise.cu) <- ``tv_denoise_chw_pallas``:
   every TV dual-ascent iteration in one launch, the state in registers;
 * ``freq_divide`` (csrc/freq_divide.cu) <- ``freq_divide``: the
-  frequency-diagonal divide of the x-update;
+  frequency-diagonal divide of the x-update, by a real divisor or (a second
+  entry) by a complex one;
 * ``fused_admm_update`` (csrc/fused_admm_update.cu) <- ``fused_admm_update``:
   the nonneg / soft-threshold prox and the ADMM dual update in one pass;
 * ``bdot`` (csrc/bdot.cu) <- ``bdot_pallas``: per-batch dot products, a
@@ -78,6 +79,8 @@ _SIGNATURES = {
     "freq_divide": {
         "dprox_freq_divide": [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL,
                               _P, _I, _F, _P, _I, _I, _I, _I, _P],
+        "dprox_freq_divide_c64": [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL,
+                                  _P, _I, _F, _P, _I, _I, _I, _I, _P],
     },
     "fused_admm_update": {
         "dprox_fused_admm_update": [_P, _P, _P, _I, _I, _P, _P, _LL, _LL, _P],
@@ -325,29 +328,38 @@ def _sum_to_scalar(g, s: torch.Tensor) -> torch.Tensor:
 
 
 def freq_divide_vjp(g, diag, rho, out, eps: float = 1e-7):
-    """Gradients of ``(F + eps) / D``, ``D = diag + rho + eps`` (real), with
+    """Gradients of ``(F + eps) / D``, ``D = diag + rho + eps``, with
     respect to F, diag and rho, given the cotangent ``g`` of the output
-    ``out``, in PyTorch's convention for complex values: ``g / D`` for F
-    and ``-Re(g conj(out)) / D`` for D, summed to each operand's shape."""
+    ``out``, in PyTorch's convention for complex values: ``g / conj(D)``
+    for F and ``-g conj(out) / conj(D)`` for D, whose real part goes to a
+    real diag and to rho; each summed to its operand's shape."""
     D = diag + _per_batch(rho, out) + eps
-    gD = -(g * out.conj()).real / D
-    return g / D, gD.sum_to_size(diag.shape), _sum_to_scalar(gD, rho)
+    if not diag.is_complex():
+        gD = -(g * out.conj()).real / D
+        return g / D, gD.sum_to_size(diag.shape), _sum_to_scalar(gD, rho)
+    Dc = D.conj()
+    gD = -(g * out.conj()) / Dc
+    return g / Dc, gD.sum_to_size(diag.shape), _sum_to_scalar(gD.real, rho)
 
 
 def _freq_divide_launch(F, diag, rho, eps):
     _cuda_tensor(F, "F", torch.complex64, F.device, ndim=4, contiguous=False)
-    _cuda_tensor(diag, "diag", torch.float32, F.device, contiguous=False)
+    complex_diag = diag.dtype == torch.complex64
+    _cuda_tensor(diag, "diag", torch.complex64 if complex_diag else torch.float32, F.device,
+                 contiguous=False)
     B, C, H, W = F.shape
     per_batch = _per_item_scalar(rho, "rho", B, F.device)
     d = torch.broadcast_to(diag, F.shape)
     out = torch.empty(F.shape, dtype=F.dtype, device=F.device)
+    lib = _lib("freq_divide")
+    entry = lib.dprox_freq_divide_c64 if complex_diag else lib.dprox_freq_divide
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("freq_divide").dprox_freq_divide(
-            F.data_ptr(), *F.stride(), d.data_ptr(), *d.stride(), rho.data_ptr(), per_batch,
-            float(eps), out.data_ptr(), B, C, H, W, stream)
+        err = entry(F.data_ptr(), *F.stride(), d.data_ptr(), *d.stride(), rho.data_ptr(),
+                    per_batch, float(eps), out.data_ptr(), B, C, H, W, stream)
     _check(err, "freq_divide", "freq_divide")
     freq_divide.launches += 1
+    freq_divide.complex_launches += complex_diag
     return out
 
 
@@ -371,8 +383,9 @@ def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
                 eps: float = 1e-7) -> torch.Tensor:
     """``(F + eps) / (diag + rho + eps)`` for complex64 F [B, C, H, W].
 
-    F and ``diag`` (real float32, broadcastable to F) are read through
-    their strides, so a broadcast, sliced or permuted view costs no copy;
+    F and ``diag`` (float32, or complex64 for a complex divisor;
+    broadcastable to F) are read through their strides, so a broadcast,
+    sliced or permuted view costs no copy;
     ``rho``: float32 device tensor holding one value or one per batch
     element. The result is contiguous. On the card it is differentiable in
     F, ``diag`` and ``rho`` (``freq_divide_vjp``) where grad is enabled.
@@ -385,6 +398,7 @@ def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
 
 
 freq_divide.launches = 0
+freq_divide.complex_launches = 0  # the complex-divisor entry's share of the launches
 
 
 # --------------------------------------------------------------------------- #
@@ -396,16 +410,18 @@ _ADMM_KINDS = {"nonneg": 0, "soft": 1}
 
 def _real_dtype(t, what: str, kernel: str, dtypes=(torch.float32,)):
     """Raises unless ``t`` has one of the real dtypes ``kernel`` is built
-    for. Complex solver states have no kernel yet (they come with the CS-MRI
-    slice), so they are NotImplementedError; so is float64 where the kernel
-    is float32 only. Any other dtype is a TypeError."""
+    for. A complex tensor is NotImplementedError: of the kernels, only
+    ``freq_divide`` takes complex operands, and no path of the JAX package
+    hands the others one (a complex solver state reaches the TV kernel as
+    its real part); so is float64 where the kernel is float32 only. Any
+    other dtype is a TypeError."""
     if t.dtype in dtypes:
         return
     takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
     if t.dtype in (torch.complex64, torch.complex128):
         raise NotImplementedError(
-            f"{what} is {t.dtype}: the {kernel} CUDA kernel takes {takes}; complex "
-            "solver states come with the CS-MRI slice")
+            f"{what} is {t.dtype}: the {kernel} CUDA kernel takes no complex tensor "
+            f"({takes} only), and no path of the JAX package gives it one")
     if t.dtype == torch.float64:
         raise NotImplementedError(
             f"{what} is float64: the {kernel} CUDA kernel takes {takes} only")
@@ -913,7 +929,11 @@ def reset_launches():
     """Set every kernel's launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    freq_divide.complex_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each kernel since the last reset; ``freq_divide_complex``
+    is the part of ``freq_divide``'s made by its complex-divisor entry."""
+    return {**{name: fn.launches for name, fn in KERNELS.items()},
+            "freq_divide_complex": freq_divide.complex_launches}

@@ -16,8 +16,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..linop.base import LinOp, Params
-from ..utils.misc import expand_to_bchw
+from ..linop.base import LinOp, Params, Placeholder
+from ..utils.misc import expand_to_bchw, to_tensor
 
 Array = torch.Tensor
 
@@ -66,7 +66,8 @@ class ProxFn:
              offset: Optional[Array] = None) -> Array:
         """Full prox with modifiers; ``offset`` may come precomputed
         (solvers hoist it out of the iteration loop)."""
-        lam = expand_to_bchw(torch.as_tensor(lam, device=v.device))
+        lam = torch.as_tensor(lam, device=v.device)
+        lam = expand_to_bchw(lam.real if lam.is_complex() else lam)  # real under complex states
         if offset is None and self.linop.constants:
             var = self.linop.variables[0]
             offset = self.offset({var.name: v.shape}, params)
@@ -111,3 +112,25 @@ class ProxFn:
 
     def __repr__(self):
         return f"{type(self).__name__}"
+
+
+class HeldData:
+    """Data of a prox (a mask, an observation, a kernel) named in
+    ``_data``, each kept as a ``Placeholder`` (its value from ``params``)
+    or as a batched tensor on the prox's device."""
+
+    _data = ()
+
+    def _hold(self, **data):
+        for name, x in data.items():
+            setattr(self, name, x if isinstance(x, Placeholder) else to_tensor(x, batch=True))
+
+    def to(self, device):
+        super().to(device)
+        for name in self._data:
+            setattr(self, name, getattr(self, name).to(device))
+        return self
+
+    def _value(self, name, params):
+        x = getattr(self, name)
+        return x.value(params) if isinstance(x, Placeholder) else x

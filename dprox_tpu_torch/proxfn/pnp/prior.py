@@ -104,8 +104,8 @@ class deep_prior(ProxFn):
         sigma = safe_sqrt(lam) if self.sqrt else lam
         if self.clamp:
             v = torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_ones(()))
-        if v.is_complex():
-            v = v.real
+        if v.is_complex():  # denoise the real part, copied out of the complex layout
+            v = v.real.contiguous()
         inp = v[:, None] if v.ndim == 3 else v
         out = self.denoiser.denoise(inp, sigma.reshape(-1))
         return out.to(v.dtype).reshape(v.shape)

@@ -12,8 +12,8 @@ Counterpart of dprox_tpu/proxfn/sum_squares.py (``sum_squares`` with
   implicit gradients, preconditioned in the frequency domain when the
   operator tree has a circulant surrogate.
 
-``ext_sum_squares`` (the fused fast proxes) comes with ROADMAP Queue 1
-items 3 and 4.
+``ext_sum_squares`` is the base of the fused fast proxes
+(``proxfn/fast``), whose closed-form ``_solve`` is the whole x-update.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from ..linalg import LinearSolveConfig, linear_solve
 from ..linop.base import LinOp, Params, Placeholder, vstack
 from ..ops.kernels import freq_divide
 from ..utils.misc import expand_to_bchw, to_tensor
-from .base import Array, ProxFn
+from .base import Array, HeldData, ProxFn
 
 
 def _fftn2(x):
@@ -50,15 +50,20 @@ def _freq_xupdate(spatial, freq_const, diag, rho, eps):
     """``real(ifft2((freq_const + fft2(spatial) + eps) / (diag + rho + eps)))``
     over [B, C, H, W], with the divide in the ``freq_divide`` kernel.
 
-    ``spatial`` (real) or ``freq_const`` (complex full-spectrum numerator,
-    e.g. the hoisted conj(H)*F(b)) may each be None; ``diag`` is the real
-    gram diagonal (full-spectrum tensor, broadcastable); ``rho`` a tensor
-    holding one value or one per batch element.
+    ``spatial`` or ``freq_const`` (complex full-spectrum numerator, e.g.
+    the hoisted conj(H)*F(b)) may each be None; ``diag`` is the gram
+    diagonal (full-spectrum tensor, broadcastable); ``rho`` a tensor
+    holding one value or one per batch element. The half-spectrum branch
+    is exact only for a real ``spatial`` and a real, even-symmetric
+    divisor; a complex ``diag`` or a complex ``spatial`` takes the
+    full-complex pair at every size, a complex divisor's divide in the
+    kernel's complex-divisor entry.
     """
     ref = spatial if spatial is not None else freq_const
     Hs, Ws = int(ref.shape[-2]), int(ref.shape[-1])
     plane = Hs * Ws
-    if plane < _RFFT_MIN_PLANE:
+    sym_ok = not (diag.is_complex() or (spatial is not None and spatial.is_complex()))
+    if plane < _RFFT_MIN_PLANE or not sym_ok:
         F = _fftn2(spatial) if spatial is not None else None
         F = freq_const if F is None else (F if freq_const is None else freq_const + F)
         return _ifftn2(freq_divide(F, diag, rho, eps)).real
@@ -95,11 +100,14 @@ def _divisor(diag_quad, diag_psi, rho, with_v: bool):
     order. With a scalar psi diagonal (a Variable) and no v term the
     divisor is ``diag_quad + (rho*diag_psi)``: the kernel adds the per-batch
     scalar itself and no divisor plane is materialized per iteration."""
-    dev = rho.device
-    if not with_v and torch.as_tensor(diag_psi).ndim == 0:
-        return torch.as_tensor(diag_quad, dtype=torch.float32, device=dev), rho * diag_psi
-    diag = torch.as_tensor(diag_quad + rho * diag_psi, dtype=torch.float32, device=dev)
-    return diag, (rho if with_v else torch.zeros_like(rho))
+    def operand(d):  # float32, or complex64 for a complex spectrum
+        d = torch.as_tensor(d, device=rho.device)
+        return d.to(torch.complex64 if d.is_complex() else torch.float32)
+
+    psi = torch.as_tensor(diag_psi)
+    if not with_v and psi.ndim == 0 and not psi.is_complex():
+        return operand(diag_quad), rho * diag_psi
+    return operand(diag_quad + rho * diag_psi), (rho if with_v else torch.zeros_like(rho))
 
 
 def _freq_jacobi_minv(theta, r):
@@ -145,6 +153,38 @@ class sum_squares(ProxFn):
         if off is not None:
             tmp = tmp - off
         return self.dag_adjoint(tmp, params)
+
+
+class ext_sum_squares(HeldData, sum_squares):
+    """Base of the fused fast data-term proxes (csmri, sisr, misr,
+    compress_sensing, spi): a subclass's ``_solve(xtilde, rho, n, params)``
+    is the whole x-update in closed form, given the sum ``xtilde`` of the
+    n consensus blocks. ``complex_state`` says that the solve lives in
+    k-space and the solver's state must be complex."""
+
+    complex_state = False
+
+    def __init__(self, linop: LinOp, eps: float = 1e-7):
+        super().__init__(linop, eps=eps)
+        self._setup_bs = []
+
+    def setup(self, bs: Sequence[Array]):
+        self._setup_bs = list(bs)
+        return self
+
+    def solve(self, vs: Sequence[Array], rho, params: Optional[Params] = None,
+              var_shapes=None, prepared=None, warm=None) -> Array:
+        """The fused x-update of ``sum(vs)``; ``var_shapes``, ``prepared``
+        and ``warm`` are taken for the solvers' interface and unused (the
+        solve is closed-form)."""
+        xtilde = 0.0
+        for v in vs:
+            xtilde = xtilde + v
+        rho = torch.as_tensor(rho, dtype=torch.float32, device=vs[0].device)
+        return self._solve(xtilde, expand_to_bchw(rho), len(vs), params)
+
+    def _solve(self, xtilde, rho, n, params):
+        raise NotImplementedError
 
 
 class weighted_sum_squares(sum_squares):

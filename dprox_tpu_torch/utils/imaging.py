@@ -2,7 +2,7 @@
 
 Counterpart of dprox_tpu/utils/imaging.py (``_synthetic_face``,
 ``sample``, ``point_spread_function``, ``blurring``, ``bayer_mask``,
-``mosaicing``). Sample data is deterministic numpy; the degradations run
+``mosaicing``, ``downsampling``). Sample data is deterministic numpy; the degradations run
 with torch on the image's device.
 """
 from __future__ import annotations
@@ -106,3 +106,34 @@ def mosaicing(img: torch.Tensor) -> torch.Tensor:
     img = to_tensor(img, batch=True)
     mask = torch.from_numpy(bayer_mask(tuple(img.shape[-2:]))).to(img.device)
     return mask * img
+
+
+def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] float32 weights of ``jax.image.resize(method="cubic")``
+    along one axis when it upsamples: the Keys kernel with a = -0.5 at the
+    sample points ``(i + 0.5) n_in / n_out - 0.5``, each column divided by
+    its sum (the border columns lose the taps that fall outside)."""
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * (n_in / n_out) - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None])
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, torch.zeros_like(w), w)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def downsampling(img: torch.Tensor, psf: np.ndarray, sf: int):
+    """Blur (``blurring``), then keep every ``sf``-th pixel; returns
+    ``(downsampled, x0)`` with x0 the cubic upsampling of the result, as
+    the JAX package's ``jax.image.resize(method="cubic")`` computes it
+    (separable Keys kernel, a = -0.5, renormalised at the borders)."""
+    img = to_tensor(img, batch=True)
+    downed = blurring(img, psf)[..., ::sf, ::sf]
+    h, w = downed.shape[-2:]
+    wh = _cubic_weights(h, h * sf, downed.device).to(downed.dtype)
+    ww = _cubic_weights(w, w * sf, downed.device).to(downed.dtype)
+    return downed, torch.einsum("bchw,hH,wW->bcHW", downed, wh, ww)

@@ -1,5 +1,5 @@
 """Image quality metrics (counterpart of dprox_tpu/utils/metrics.py: mse,
-psnr, ssim).
+psnr, ssim, and the hyperspectral sam, ergas, mpsnr, mssim, mpsnr_max).
 
 Metrics run host-side in float64 on HWC, CHW or BCHW inputs in [0, 1].
 """
@@ -64,3 +64,43 @@ def ssim(output, target, data_range: float = 1.0) -> float:
         return _ssim_2d(o, t, data_range)
     return float(np.mean([_ssim_2d(o[..., c], t[..., c], data_range)
                           for c in range(o.shape[-1])]))
+
+
+def sam(output, target, eps: float = 1e-8) -> float:
+    """Spectral angle mapper (degrees), over the channel axis."""
+    o, t = _pair(output, target)
+    num = (o * t).sum(-1)
+    den = np.sqrt((o * o).sum(-1)) * np.sqrt((t * t).sum(-1))
+    return float(np.mean(np.arccos(np.clip(num / (den + eps), -1, 1))) * 180.0 / np.pi)
+
+
+def ergas(output, target, r: float = 4.0) -> float:
+    o, t = _pair(output, target)
+    nbands = o.shape[-1]
+    acc = 0.0
+    for c in range(nbands):
+        rmse_c = np.sqrt(np.mean((o[..., c] - t[..., c]) ** 2))
+        acc += (rmse_c / (np.mean(t[..., c]) + 1e-12)) ** 2
+    return float(100.0 / r * np.sqrt(acc / nbands))
+
+
+def mpsnr(output, target, data_range: float = 1.0) -> float:
+    """Mean per-band PSNR (hyperspectral convention)."""
+    o, t = _pair(output, target)
+    return float(np.mean([psnr(o[..., c], t[..., c], data_range) for c in range(o.shape[-1])]))
+
+
+def mssim(output, target, data_range: float = 1.0) -> float:
+    o, t = _pair(output, target)
+    return float(np.mean([_ssim_2d(o[..., c], t[..., c], data_range)
+                          for c in range(o.shape[-1])]))
+
+
+def mpsnr_max(output, target) -> float:
+    """Per-band PSNR with each band's maximum as the peak."""
+    o, t = _pair(output, target)
+    vals = []
+    for c in range(o.shape[-1]):
+        peak = float(t[..., c].max())
+        vals.append(psnr(o[..., c], t[..., c], data_range=peak if peak > 0 else 1.0))
+    return float(np.mean(vals))

@@ -21,18 +21,32 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+class _TaggedArray(np.ndarray):
+    """A numpy array tagged as already batched (``array``)."""
+
+    is_dp_array = True
+
+
+def array(x) -> np.ndarray:
+    """Tag an array as already batched, so ``to_tensor(batch=True)`` takes
+    it as it is (the JAX package's ``dp.utils.array``)."""
+    return np.asarray(x).view(_TaggedArray)
+
+
 def to_tensor(x, batch: bool = False, device=None) -> torch.Tensor:
     """Convert to a float/complex tensor, optionally adding batch dims.
 
     HWC (C in {1,3}) -> CHW; then one leading axis if ndim < 4, as
     dprox_tpu/utils/misc.py::to_jax_array adds it (a 2-D matrix becomes
-    [1, H, W], which ``Algorithm._restore_shape`` undoes). ``device=None``
-    keeps a tensor where it is and puts numpy data on the CPU.
+    [1, H, W], which ``Algorithm._restore_shape`` undoes); an ``array``
+    is taken as it is. ``device=None`` keeps a tensor where it is and puts
+    numpy data on the CPU.
     """
+    tagged = getattr(x, "is_dp_array", False)
     out = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     if device is not None:
         out = out.to(device)
-    if batch:
+    if batch and not tagged:
         if out.ndim == 3 and out.shape[2] in (1, 3):
             out = out.permute(2, 0, 1)
         if out.ndim < 4:
@@ -70,7 +84,7 @@ def to_ndarray(x, debatch: bool = False, squeeze: bool = False) -> np.ndarray:
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    return torch.sqrt(torch.maximum(x, x.new_tensor(eps)))
+    return torch.sqrt(torch.maximum(x, x.new_full((), eps)))  # filled on the device
 
 
 def expand_to_bchw(r: torch.Tensor) -> torch.Tensor:

@@ -331,12 +331,12 @@ def test_fused_cg_tail_unaligned_and_replayed_give_the_same_bits(cuda, shape):
 def test_solver_kernels_raise_on_what_they_do_not_take(cuda):
     a = torch.rand(2, 3, 8, 8, device=cuda)
     lam = torch.full((1,), 0.1, device=cuda)
-    bad = a.to(torch.complex64)  # complex states: no kernel yet
-    with pytest.raises(NotImplementedError, match="CS-MRI"):
+    bad = a.to(torch.complex64)  # no path hands these kernels a complex tensor
+    with pytest.raises(NotImplementedError, match="takes no complex tensor"):
         kernels.bdot(bad, bad)
-    with pytest.raises(NotImplementedError, match="CS-MRI"):
+    with pytest.raises(NotImplementedError, match="takes no complex tensor"):
         kernels.fused_admm_update(bad, bad, lam)
-    with pytest.raises(NotImplementedError, match="CS-MRI"):
+    with pytest.raises(NotImplementedError, match="takes no complex tensor"):
         kernels.fused_cg_tail(bad, bad, bad, bad, torch.ones(2, device=cuda))
     bad = a.double()  # float64: bdot takes it, the other two say they do not
     assert kernels.bdot(bad, bad).dtype == torch.float64
@@ -589,7 +589,7 @@ def test_csr_matvec_raises_on_what_it_does_not_take(cuda):
         kernels.csr_matvec(indptr, indices, values, x[:5].contiguous())
     with pytest.raises(RuntimeError, match="csr_matvec kernel launch failed"):
         kernels.csr_matvec(indptr, indices, values, x, split._replace(n_split=1))
-    with pytest.raises(NotImplementedError, match="CS-MRI"):
+    with pytest.raises(NotImplementedError, match="takes no complex tensor"):
         kernels.csr_matvec(indptr, indices, values.to(torch.complex64), x, split)
     before = kernels.csr_matvec.launches
     empty = _csr_case(sp.csr_matrix((7, 20)), torch.float32, cuda)
@@ -639,7 +639,7 @@ def test_bsr_matvec_raises_on_what_it_does_not_take(cuda):
         kernels.bsr_matvec(op.tiles, op.col_ids, op.row_ids.flip(0).contiguous(), x, op.Mb)
     with pytest.raises(ValueError, match="idx_in"):
         kernels.bsr_matvec(op.tiles, op.col_ids + op.Nb, op.row_ids, x, op.Mb)
-    with pytest.raises(NotImplementedError, match="CS-MRI"):
+    with pytest.raises(NotImplementedError, match="takes no complex tensor"):
         kernels.bsr_matvec(op.tiles.to(torch.complex64), *args[1:])
 
 
@@ -683,8 +683,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     rho = torch.ones((), device=cuda)
     with pytest.raises(TypeError):
         kernels.freq_divide(F.to(torch.complex128), torch.ones((), device=cuda), rho)
-    with pytest.raises(TypeError):
-        kernels.freq_divide(F, torch.ones((), dtype=torch.complex64, device=cuda), rho)
+    with pytest.raises(TypeError):  # a complex divisor is complex64, like F
+        kernels.freq_divide(F, torch.ones((), dtype=torch.complex128, device=cuda), rho)
     with pytest.raises(ValueError):
         kernels.freq_divide(F[0], torch.ones((), device=cuda), rho)
     with pytest.raises(RuntimeError):
@@ -941,3 +941,108 @@ def test_equilibrate_and_norm_estimate_run_on_cuda_as_on_cpu(cuda):
     for got, ref in zip(out["cuda"][:2], out["cpu"][:2]):
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
     assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-4 * out["cpu"][2]
+
+
+@pytest.mark.parametrize("fshape,dshape,rshape", [
+    ((1, 3, 512, 512), (1, 3, 512, 512), ()), ((2, 1, 37, 53), (1, 1, 37, 53), (2, 1, 1, 1)),
+    ((1, 3, 64, 33), (1, 3, 64, 64), (1,))])  # a sliced complex diag, read by strides
+def test_freq_divide_complex_divisor_matches_plain(cuda, fshape, dshape, rshape):
+    """The complex-divisor entry: c10::complex's division in float32 with
+    --fmad=false, against PyTorch's own on the same inputs; within 1e-6 of
+    the largest output (PyTorch's CUDA build may contract to FMAs)."""
+    rng = np.random.RandomState(21)
+    F = torch.from_numpy((rng.randn(*fshape) + 1j * rng.randn(*fshape)).astype(np.complex64))
+    diag = torch.from_numpy((rng.rand(*dshape) + 1j * rng.randn(*dshape)).astype(np.complex64))
+    diag = diag[..., :fshape[-1]].to(cuda)
+    rho = torch.from_numpy(np.asarray(1e-2 * (1 + rng.rand(*rshape)), np.float32)).to(cuda)
+    before = kernels.freq_divide.launches, kernels.freq_divide.complex_launches
+    got = kernels.freq_divide(F.to(cuda), diag, rho)
+    assert (kernels.freq_divide.launches, kernels.freq_divide.complex_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = kernels.freq_divide_plain(F.to(cuda), diag, rho)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.dtype == torch.complex64
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_freq_divide_complex_divisor_gradient_matches_plain(cuda):
+    """Against autograd of the plain version on complex128 / float64
+    copies, relative 1e-5 of each gradient's largest entry."""
+    rng = np.random.RandomState(22)
+    shape = (2, 3, 32, 40)
+    F = (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
+    diag = (2.0 + rng.rand(1, 3, 32, 40) + 1j * rng.randn(1, 3, 32, 40)).astype(np.complex64)
+    rho = (1e-2 * (1 + rng.rand(2, 1, 1, 1))).astype(np.float32)
+    g = torch.from_numpy((rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64))
+    ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in (F, diag, rho)]
+    out = kernels.freq_divide(*ins)
+    got = torch.autograd.grad(out, ins, g.to(cuda))
+    ins64 = [torch.from_numpy(a).to(cuda).to(torch.complex128 if np.iscomplexobj(a)
+                                             else torch.float64).requires_grad_()
+             for a in (F, diag, rho)]
+    ref = torch.autograd.grad(kernels.freq_divide_plain(*ins64), ins64,
+                              g.to(cuda).to(torch.complex128))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5
+
+
+def test_tv_kernel_takes_a_complex_states_real_part_made_contiguous(cuda):
+    """A complex tensor's .real is a strided view: the TV wrapper refuses
+    it, and the copy deep_prior makes gives the plain version's bits."""
+    rng = np.random.RandomState(23)
+    z = torch.from_numpy((rng.rand(1, 128, 128) + 1j * rng.rand(1, 128, 128))
+                         .astype(np.complex64)).to(cuda)
+    lam = torch.full((1,), 0.05, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.tv_denoise_chw(z.real, lam, 10)
+    got = kernels.tv_denoise_chw(z.real.contiguous(), lam, 10)
+    assert torch.equal(got, kernels.tv_denoise_chw_plain(z.real.contiguous(), lam, 10))
+    x = dp.Variable()
+    before = kernels.tv_denoise_chw.launches
+    out = dp.deep_prior(x, "tv").to(cuda).prox(z[None], lam)
+    assert kernels.tv_denoise_chw.launches == before + 1 and not out.is_complex()
+
+
+def test_csmri_solve_on_cuda_matches_cpu(cuda):
+    """The complex-state solve: the TV kernel once an iteration on the real
+    part, no divide (the x-update is the k-space closed form) and no fused
+    update; card against CPU within 1e-4 (cuFFT against the CPU FFT)."""
+    from dprox_tpu_torch.contrib import csmri
+
+    s = csmri.generate_sample(size=64, num_lines=30)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                            + dp.deep_prior(x, "tv", sqrt=True), "admm", device=device)
+        rhos, sigmas = dp.log_descent(30, 5, 8, sigma=0.01)
+        kernels.reset_launches()
+        outs[device] = solver.solve(x0=s["x0"], rhos=rhos, lams=sigmas, max_iter=8,
+                                    params=s["params"], real_output=True).cpu()
+        if device == "cuda":
+            assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0) | {
+                "tv_denoise_chw": 8}
+    assert outs["cuda"].dtype == torch.float32
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4
+
+
+def test_sisr_solve_on_cuda_matches_cpu(cuda):
+    """The fused sisr x-update with the TV prior: one TV launch an
+    iteration; card against CPU within 1e-4."""
+    img = dp.tensor(imaging._synthetic_face(512, 512)[:64, :64], batch=True)
+    psf = imaging.point_spread_function(15, 2)
+    y, x0 = imaging.downsampling(img, psf, 2)
+    kernel = np.transpose(psf, (2, 0, 1))[None]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        prob = dp.Problem(dp.sisr(x, dp.utils.array(y.numpy()), dp.utils.array(kernel), 2)
+                          + dp.deep_prior(x, "tv"))
+        rhos, sigmas = dp.log_descent(60, 20, 6)
+        kernels.reset_launches()
+        outs[device] = prob.solve(method="admm", device=device, x0=x0, rhos=rhos, lams=sigmas,
+                                  max_iter=6).cpu()
+        if device == "cuda":
+            assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0) | {
+                "tv_denoise_chw": 6}
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4

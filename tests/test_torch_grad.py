@@ -213,7 +213,8 @@ def _complex(rng, *shape):
     return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
 
 
-@pytest.mark.parametrize("name", ["tv", "freq_divide", "admm_nonneg", "admm_soft", "cg_tail"])
+@pytest.mark.parametrize("name", ["tv", "freq_divide", "freq_divide_complex", "admm_nonneg",
+                                  "admm_soft", "cg_tail"])
 def test_kernel_functions_backward_equals_autograd_of_plain(monkeypatch, name):
     """The wiring of the four autograd Functions the wrappers use on the
     card (saved tensors, the VJPs, one gradient per input), run here with
@@ -228,11 +229,13 @@ def test_kernel_functions_backward_equals_autograd_of_plain(monkeypatch, name):
         fn, plain = (lambda y, l: kernels._TVFn.apply(y, l, 5),
                      lambda y, l: kernels.tv_denoise_chw_plain(y, l, 5))
         ins = [put(rng.rand(3, 9, 11).astype(np.float32)), put(np.float32([0.05, 0.1, 0.2]))]
-    elif name == "freq_divide":
+    elif name.startswith("freq_divide"):
         monkeypatch.setattr(kernels, "_freq_divide_launch", kernels.freq_divide_plain)
         fn, plain = (lambda F, d, r: kernels._FreqDivideFn.apply(F, d, r, 1e-7),
                      kernels.freq_divide_plain)
-        ins = [put(_complex(rng, *shape)), put(rng.rand(1, 3, 6, 7).astype(np.float32)),
+        diag = (_complex(rng, 1, 3, 6, 7) + 2.0 if name.endswith("complex")
+                else rng.rand(1, 3, 6, 7).astype(np.float32))
+        ins = [put(_complex(rng, *shape)), put(diag),
                put((0.1 + rng.rand(2, 1, 1, 1)).astype(np.float32))]
     elif name.startswith("admm"):
         kind = "nonneg" if name == "admm_nonneg" else "soft"

@@ -161,7 +161,7 @@ def test_solver_wrappers_take_plain_version_on_cpu():
                        kernels.csr_matvec_plain(indptr, cols, torch.ones(3), torch.arange(4.0), split))
     assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide", "bsr_matvec",
                                             "csr_matvec", "fused_admm_update", "bdot",
-                                            "fused_cg_tail"}
+                                            "fused_cg_tail", "freq_divide_complex"}
     assert set(kernels.launch_counts().values()) == {0}
 
 

@@ -156,10 +156,35 @@ def test_linear_solve_gradients_through_nested_theta_and_nonsymmetric_flag():
         np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-4, atol=1e-6)
 
 
-def test_unrolled_gradient_is_not_ported():
-    with pytest.raises(NotImplementedError, match="specialization"):
-        linear_solve(lambda t, v: v, torch.ones(1, 2),
-                     config=LinearSolveConfig(use_analytic_grad=False))
+@pytest.mark.parametrize("seed", [99, 3])
+def test_unrolled_gradient_matches_jax_and_the_analytic_one(seed):
+    """tests/linalg/test_linear_solver_grad.py::test_unrolled_matches_analytic
+    in torch: use_analytic_grad=False differentiates cg_unrolled step by
+    step; its dL/dtheta and dL/db equal JAX's unrolled ones (rtol 1e-4, the
+    same float32 recurrence) and the implicit ones (atol 1e-3, as there)."""
+    rng = np.random.RandomState(seed)
+    n = 6
+    P = rng.rand(n, n).astype(np.float32)
+    b = rng.rand(1, n).astype(np.float32)
+
+    def A_fn(theta, v, xp):
+        A = theta @ theta.T + n * xp.eye(n)
+        return xp.einsum("ij,bj->bi", A, v)
+
+    def grads(analytic):
+        theta, bt = torch.from_numpy(P).requires_grad_(), torch.from_numpy(b).requires_grad_()
+        cfg = LinearSolveConfig(rtol=1e-9, max_iters=500, use_analytic_grad=analytic)
+        x = linear_solve(lambda t, v: A_fn(t, v, torch), bt, theta=theta, config=cfg)
+        return torch.autograd.grad(x.sum(), (theta, bt))
+
+    cfg = jlinalg.LinearSolveConfig(rtol=1e-9, max_iters=500, use_analytic_grad=False)
+    ref = jax.grad(lambda t, bb: jnp.sum(jlinalg.linear_solve(
+        lambda tt, v: A_fn(tt, v, jnp), bb, theta=t, config=cfg)), argnums=(0, 1))(
+        jnp.asarray(P), jnp.asarray(b))
+    unrolled, analytic = grads(False), grads(True)
+    for gu, ga, gj in zip(unrolled, analytic, ref):
+        np.testing.assert_allclose(gu.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(gu.numpy(), ga.numpy(), atol=1e-3)
 
 
 def test_pcg_solve_matches_jax():
