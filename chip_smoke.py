@@ -81,6 +81,22 @@ exits non-zero):
               HSI sisr, misr and compress_sensing with 3-D TV (no kernel);
               each PSNR against the JAX package on the CPU; and the
               flagship with conv_doe in place of conv against conv's PSNR.
+12. special - the specializations through dp.specialize on the shipped
+              trained solvers: the color DEQ deconvolution (weights/
+              deq_deconv: FFDNet nc=96 nb=10 through the equilibrium,
+              1x3x128x128, f_thres 24, b_thres 16) at three held-out (psf,
+              noise) settings and annealed (12 levels x 2), the CS-MRI DEQ
+              (deq_csmri) on the DEQ_GRID cells, the CS-MRI and deconv
+              tuners (autotune_*); each PSNR and Anderson's stopping step
+              against the JAX package on the CPU (the tuned CS-MRI solve
+              more than 1 dB over log_descent), launch counts against the
+              evaluations of f; gradients of training steps through the
+              kernels' autograd Functions (the color and the nonneg DEQ's
+              implicit backward, 4 train_supervised steps of an unrolled
+              solver, the tuner's episode) against the CPU; the DEQ's
+              marginal iterations/s against plain ADMM on the same problem,
+              one f evaluation and one Anderson step, a training step and
+              a tuner episode.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls; phase
@@ -205,6 +221,55 @@ HSI_GOLDEN_MPSNR = {"sisr": 26.70, "misr": 31.92, "cs": 30.21}
 # which moved the PSNR by ~1e-7 dB on the CPU with the TV prior (128^2 and
 # 256^2 crops, 48 iterations)
 CONV_DOE_GAP_DB = 1e-3
+
+# The special phase: the shipped trained solvers (weights/deq_deconv, deq_csmri,
+# autotune_csmri, autotune_deconv) with the JAX package on the CPU, printed
+# under "special" by
+#   JAX_PLATFORMS=cpu python scripts/smoke_references.py special
+# on the inputs this phase makes (deq_observation: the face's 128x128 crop
+# blurred in float64 with numpy plus numpy noise; the CS-MRI phantoms):
+# PSNRs, Anderson's evaluations of f (its stopping step) forward and, for a
+# training step, backward, and the residuals its stop test read (eps 1e-3).
+DEQ_DECONV_CELLS = [(5.0, 0.01), (5.0, 0.02), (7.0, 0.03)]  # (psf sigma, noise) held out
+DEQ_CSMRI_CELLS = [(50, 0.0), (40, 0.05)]  # tests/paper/test_csmri_grid.py::DEQ_GRID
+ANDERSON_EPS = 1e-3
+JAX_CPU_SPECIAL = {
+    "deq_deconv_0": {"psnr": 25.992279270503428, "forward_evaluations": 8, "forward_res":
+        [0.0023593403736491885, 0.0013030385764914258, 0.00077635830211787]},
+    "deq_deconv_1": {"psnr": 25.8769302211339, "forward_evaluations": 9, "forward_res":
+        [0.0030929129002665195, 0.0017782449589080066, 0.0011314823825377975,
+        0.0007782870183491228]},
+    "deq_deconv_2": {"psnr": 25.687294943404954, "forward_evaluations": 9, "forward_res":
+        [0.0027084059995965233, 0.0015926108392323164, 0.001069120846834345,
+        0.0007811781841747034]},
+    "deq_deconv_train_step": {"forward_evaluations": 8, "forward_res": [0.002359339667080958,
+        0.001303039633686554, 0.0007763636341873484], "backward_evaluations": 16, "backward_res":
+        [0.2013844803368019, 0.18543068083567424, 0.2674929277989218, 0.1645294863093614,
+        0.11320029459382665, 0.07978715372460163, 0.05619066155114636, 0.04007688973302585,
+        0.03179472156760104, 0.029173148418153893, 0.027110967768979914]},
+    "deq_deconv_anneal": {"psnr": 32.0968185704496},
+    "deq_csmri_50_0.0": {"psnr": 30.993278886109373, "forward_evaluations": 24, "forward_res":
+        [0.07418737623012653, 0.059852981124883485, 0.047761933362771694, 0.038751180211904344,
+        0.03279677828837007, 0.02672714483195515, 0.021132522742988276, 0.017146331180089146,
+        0.013319302325130006, 0.010499653777652728, 0.008755773268588573, 0.0071906317246924435,
+        0.005911339282231412, 0.004869900376797957, 0.004084964308793907, 0.003381926303249313,
+        0.0028016110414504918, 0.0023168746877436095, 0.001964448069369653]},
+    "deq_csmri_40_0.05": {"psnr": 27.514479037069023, "forward_evaluations": 24, "forward_res":
+        [0.07564516575463935, 0.05804753459482588, 0.044162289621124805, 0.034893996461353556,
+        0.02894217725747762, 0.024668272978450884, 0.021170219640111964, 0.018409347322845843,
+        0.015816696924894194, 0.0133516508335627, 0.011097642182087334, 0.00880127203941622,
+        0.006974753541808793, 0.005502821884640896, 0.004335624381646497, 0.0034572141356438058,
+        0.0027789351415790984, 0.0022522834486825663, 0.001828486371076499]},
+    "deq_nonneg_train_step": {"forward_evaluations": 15, "forward_res": [0.0027392968470935832,
+        0.002342814963716231, 0.002071271090001445, 0.001877310440580079, 0.0017628928244600042,
+        0.0016550720644565818, 0.0015987693346389573, 0.0015227093922561485, 0.0014477803341297751,
+        0.0014037469166079289], "backward_evaluations": 15, "backward_res": [0.3705317281504203,
+        0.34960039794535785, 0.30456803857346837, 0.2792070963130679, 0.25940211243535516,
+        0.24248059505948452, 0.22724144939219842, 0.21304364032292308, 0.19951323412589927,
+        0.18821255982198873]},
+    "autotune_csmri": {"tuned": 23.28993023449933, "log_descent": 20.23619618575134},
+    "autotune_deconv": {"tuned": 26.17169004681086, "log_descent": 26.888173274140236},
+}
 
 # The LP phase: synthetic_cep_model(512, 16) in float32. The values below were
 # computed with the JAX package on the CPU by
@@ -2125,6 +2190,425 @@ def phase_fast(dp, kernels, dev, card):
     return by_path
 
 
+def deq_observation(sig, sn, seed, dev, k=15, size=128):
+    """(gt, y, psf [1, 3, k, k]) float32 tensors on ``dev``: the face
+    cropped to ``size``, blurred circularly by point_spread_function(k, sig)
+    in float64 on the host, plus sn * RandomState(seed) noise, as
+    scripts/smoke_references.py::deq_observation makes them."""
+    from dprox_tpu_torch.utils.fft import psf2otf
+    from dprox_tpu_torch.utils.imaging import _synthetic_face, point_spread_function
+
+    gt = _synthetic_face(512, 512)[:size, :size].transpose(2, 0, 1)[None]
+    psf = point_spread_function(k, sig)
+    otf = psf2otf(np.asarray(psf).squeeze(), (size, size))
+    y = np.real(np.fft.ifft2(otf * np.fft.fft2(gt.astype(np.float64))))
+    y = y + sn * np.random.RandomState(seed).randn(*y.shape)
+    psf13 = np.tile(np.transpose(psf, (2, 0, 1))[None], (1, 3, 1, 1))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                 for a in (gt, y, psf13))
+
+
+def _special_models(dp, dev):
+    """Builders of the shipped trained solvers on ``dev``, by name."""
+    from dprox_tpu_torch.algo.base import params_to
+    from dprox_tpu_torch.proxfn.pnp.prior import get_denoiser
+    from dprox_tpu_torch.utils.checkpoint import deq_params_from_flax, load_flax_msgpack
+
+    def weights(name):
+        return os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", name)
+
+    def color_deq(f_thres=24, anneal=1):  # scripts/train_deq_deconv.py::build_deq
+        x = dp.Variable()
+        data = dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf"), circular=True),
+                              b=dp.Placeholder("y"))
+        solver = dp.compile(data + dp.deep_prior(x, get_denoiser("distilled_color"),
+                                                 param_key="deq_prior"), "admm", device=dev)
+        deq = dp.specialize(solver, "deq", learned_params=True, f_thres=f_thres, b_thres=16,
+                            anneal=anneal)
+        return deq, params_to(deq_params_from_flax(load_flax_msgpack(
+            weights("deq_deconv.msgpack"))), dev)
+
+    def csmri_deq():  # tests/paper/test_csmri_grid.py::test_trained_deq_grid
+        x = dp.Variable()
+        solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                            + dp.deep_prior(x, get_denoiser("distilled_gray"), sqrt=True,
+                                            param_key="deq_prior"), "admm", device=dev)
+        deq = dp.specialize(solver, "deq", learned_params=True, f_thres=24, b_thres=16)
+        return deq, params_to(deq_params_from_flax(load_flax_msgpack(
+            weights("deq_csmri.msgpack"))), dev)
+
+    def csmri_tuner():  # tests/test_specialization.py, the shipped policy
+        x = dp.Variable()
+        solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                            + dp.deep_prior(x, "tv", sqrt=True), "admm", device=dev)
+        tuner = dp.specialize(solver, "rl", action_pack=5, max_episode_step=6)
+        tuner.load(weights("autotune_csmri.msgpack"))
+        return tuner, solver
+
+    def deconv_tuner():  # scripts/train_autotune_multi.py::build_tuner("deconv")
+        x = dp.Variable()
+        solver = dp.compile(dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf", batch=False))
+                                           - dp.Placeholder("b")) + dp.deep_prior(x, "tv"),
+                            "admm", device=dev)
+
+        def pack(variables, x0c, T, aux):
+            B, _, H, W = x0c.shape
+            amap = torch.as_tensor(np.asarray(aux, np.float32), device=x0c.device)
+            return torch.cat([variables, x0c, T, amap[:, :, None, None].expand(B, 2, H, W)], 1)
+
+        tuner = dp.AutoTuneSolver(solver, action_pack=5, max_episode_step=6,
+                                  ob_dim=solver.state_dim + 4, custom_policy_ob_pack_fn=pack)
+        tuner.load(weights("autotune_deconv.msgpack"))
+        return tuner, solver
+
+    def nonneg_deq():  # tests/test_specialization.py:68-84 at 128^2
+        from dprox_tpu_torch.utils.imaging import point_spread_function
+
+        gt, y, _ = deq_observation(2.0, 0.01, 0, dev, k=5)
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, point_spread_function(5, 2)) - y),
+                             dp.nonneg(x)], "admm", device=dev)
+        return dp.specialize(solver, "deq", learned_params=True, f_thres=15, b_thres=15), gt, y
+
+    return {"color_deq": color_deq, "csmri_deq": csmri_deq, "csmri_tuner": csmri_tuner,
+            "deconv_tuner": deconv_tuner, "nonneg_deq": nonneg_deq}
+
+
+def _kernel_ms(fn, calls=10):
+    """Device time of one call of ``fn``: the sum of its device kernels'
+    durations in a torch.profiler trace of ``calls`` eager calls (the
+    Anderson step solves its small system with torch.linalg.solve_ex,
+    which a CUDA graph is not known to capture); None where the trace
+    holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
+
+
+def _grad_rel(got, ref):
+    return float((got.detach().cpu().double() - ref.detach().cpu().double()).abs().max()
+                 / ref.detach().cpu().double().abs().max().clamp(min=1e-300))
+
+
+def phase_special(dp, kernels, dev, card):
+    """The shipped trained solvers through dp.specialize on the card: the
+    color DEQ deconvolution (FFDNet nc=96 nb=10 fine-tuned through the
+    equilibrium) at its three held-out settings and annealed, the trained
+    CS-MRI DEQ on DEQ_GRID's cells, the CS-MRI and deconv tuners; each PSNR
+    and Anderson stopping step against the JAX package on the CPU, launch
+    counts against the evaluations of f; gradients of training steps (the
+    color and the nonneg DEQ through the implicit backward, the unrolled
+    solver, the tuner) against the same on the CPU; iteration and step
+    times."""
+    from dprox_tpu_torch.algo.special import UnrolledSolver, anderson, train_supervised
+    from dprox_tpu_torch.algo.special.fixed_point import _mix_weights
+    from dprox_tpu_torch.contrib import csmri
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+    from dprox_tpu_torch.utils.metrics import psnr
+
+    models, cpu_models = _special_models(dp, dev), _special_models(dp, "cpu")
+    records, by_path, failed = {}, {}, []
+    zero = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def launches_are(name, counts, expected):
+        if counts != zero | expected:
+            failed.append(f"{name}: launches {counts} != {zero | expected}")
+
+    def psnr_gate(name, got, ref):
+        if not abs(got - ref) <= PSNR_TOL_DB:
+            failed.append(f"{name}: PSNR {got} vs JAX-CPU {ref}")
+
+    def stop_gate(name, stats, ref, key="forward"):
+        """Anderson's stopping step (its evaluations of f) against JAX's;
+        on a difference, both residual histories against eps."""
+        got = stats[key]["evaluations"]
+        if got != ref[f"{key}_evaluations"]:
+            failed.append(f"{name} {key}: {got} evaluations, JAX-CPU "
+                          f"{ref[f'{key}_evaluations']}; residuals (eps {ANDERSON_EPS}) here "
+                          f"{stats[key]['res']}, JAX-CPU {ref[f'{key}_res']}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernels.launch_counts()
+
+    # the color DEQ at its three held-out settings, then annealed (noiseless)
+    deq, params = models["color_deq"]()
+    for i, (sig, sn) in enumerate(DEQ_DECONV_CELLS):
+        name, ref = f"deq_deconv_{i}", JAX_CPU_SPECIAL[f"deq_deconv_{i}"]
+        gt, y, psf = deq_observation(sig, sn, 77 + i, dev)
+        stats = []
+        out, seconds, counts = timed(lambda: deq.solve(
+            x0=y, rhos=0.05 + 5.0 * sn, lams=0.1 + 2.0 * sn, params=dict(params, psf=psf, y=y),
+            real_output=True, stats=stats))
+        got = psnr(torch.clamp(out, 0, 1), gt)
+        n = stats[0]["forward"]["evaluations"]
+        records[name] = {"psf_sigma": sig, "noise": sn, "psnr": got, "jax_cpu_psnr": ref["psnr"],
+                         "psnr_gap_db": got - ref["psnr"], "evaluations": n,
+                         "jax_cpu_evaluations": ref["forward_evaluations"],
+                         "last_res": stats[0]["forward"]["res"][-1], "solve_s": seconds,
+                         "launches": {k: v for k, v in counts.items() if v}}
+        by_path[name] = counts
+        psnr_gate(name, got, ref["psnr"])
+        stop_gate(name, stats[0], ref)
+        launches_are(name, counts, {"freq_divide": n})
+    deq12, _ = models["color_deq"](f_thres=2, anneal=12)
+    gt, y, psf = deq_observation(5.0, 0.0, 0, dev)
+    rhos, sigmas = dp.log_descent(80, 5, 12, sigma=0.001, lam=0.23)
+    stats = []
+    out, seconds, counts = timed(lambda: deq12.solve(
+        x0=y, rhos=rhos, lams=sigmas, params=dict(params, psf=psf, y=y), real_output=True,
+        stats=stats))
+    got, ref = psnr(torch.clamp(out, 0, 1), gt), JAX_CPU_SPECIAL["deq_deconv_anneal"]["psnr"]
+    n = sum(s["forward"]["evaluations"] for s in stats)
+    records["deq_deconv_anneal"] = {"levels": 12, "f_thres": 2, "psnr": got, "jax_cpu_psnr": ref,
+                                    "psnr_gap_db": got - ref, "evaluations": n,
+                                    "solve_s": seconds,
+                                    "launches": {k: v for k, v in counts.items() if v}}
+    by_path["deq_deconv_anneal"] = counts
+    psnr_gate("deq_deconv_anneal", got, ref)
+    launches_are("deq_deconv_anneal", counts, {"freq_divide": 24})
+    if n != 24:
+        failed.append(f"deq_deconv_anneal: {n} evaluations, not 12 x 2")
+
+    # the trained CS-MRI DEQ (no kernel: k-space x-update, a network prior)
+    cdeq, cparams = models["csmri_deq"]()
+    for lines, sigma in DEQ_CSMRI_CELLS:
+        name = f"deq_csmri_{lines}_{sigma}"
+        ref = JAX_CPU_SPECIAL[name]
+        s = csmri.generate_sample(size=128, num_lines=lines, sigma=sigma)
+        stats = []
+        out, seconds, counts = timed(lambda: cdeq.solve(
+            x0=np.real(s["x0"]).astype(np.float32), rhos=0.3, lams=0.05,
+            params=dict(cparams, **s["params"]), real_output=True, stats=stats))
+        got = psnr(out, s["gt"])
+        records[name] = {"psnr": got, "jax_cpu_psnr": ref["psnr"], "psnr_gap_db": got - ref["psnr"],
+                         "evaluations": stats[0]["forward"]["evaluations"],
+                         "jax_cpu_evaluations": ref["forward_evaluations"],
+                         "last_res": stats[0]["forward"]["res"][-1], "solve_s": seconds,
+                         "launches": {k: v for k, v in counts.items() if v}}
+        by_path[name] = counts
+        psnr_gate(name, got, ref["psnr"])
+        stop_gate(name, stats[0], ref)
+        launches_are(name, counts, {})
+
+    # the shipped tuners: CS-MRI against log_descent at 30 iterations, deconv
+    tuner, solver = models["csmri_tuner"]()
+    s = csmri.generate_sample(size=128, num_lines=40, sigma=0.05)
+    x0 = np.real(s["x0"]).astype(np.float32)
+    tuner.solve(x0, solve_params=s["params"])  # warm
+    out, seconds, counts = timed(lambda: tuner.solve(x0, solve_params=s["params"]))
+    rhos, sigmas = dp.log_descent(30, 5, 30, sigma=0.01)
+    base = psnr(solver.solve(x0=s["x0"], rhos=rhos, lams=sigmas, max_iter=30,
+                             params=s["params"], real_output=True), s["gt"])
+    ref = JAX_CPU_SPECIAL["autotune_csmri"]
+    got = psnr(out.real, s["gt"])
+    records["autotune_csmri"] = {
+        "tuned_psnr": got, "jax_cpu_tuned_psnr": ref["tuned"], "psnr_gap_db": got - ref["tuned"],
+        "log_descent_psnr": base, "jax_cpu_log_descent_psnr": ref["log_descent"],
+        "gain_db": got - base, "episode_s": seconds, "episode_its_per_sec": 30 / seconds,
+        "launches": {k: v for k, v in counts.items() if v},
+        "policy_device": str(next(tuner.policy.parameters()).device)}
+    by_path["autotune_csmri"] = counts
+    psnr_gate("autotune_csmri", got, ref["tuned"])
+    psnr_gate("autotune_csmri log_descent", base, ref["log_descent"])
+    launches_are("autotune_csmri", counts, {"tv_denoise_chw": 30})
+    if not got > base + 1.0:
+        failed.append(f"autotune_csmri: tuned {got} not 1 dB over log_descent {base}")
+    dtuner, dsolver = models["deconv_tuner"]()
+    gt, b, psf = deq_observation(2.5, 0.0, 0, dev)
+    sp = {"b": b, "psf": psf}
+    aux = np.asarray([[0.0, 0.25]], np.float32)
+    out, seconds, counts = timed(lambda: dtuner.solve(b, aux_state=aux, solve_params=sp))
+    rhos, sigmas = dp.log_descent(35, 10, 30)
+    base = psnr(torch.clamp(dsolver.solve(x0=b, rhos=rhos, lams=sigmas, max_iter=30, params=sp),
+                            0, 1), gt)
+    ref = JAX_CPU_SPECIAL["autotune_deconv"]
+    got = psnr(torch.clamp(out.real, 0, 1), gt)
+    records["autotune_deconv"] = {
+        "tuned_psnr": got, "jax_cpu_tuned_psnr": ref["tuned"], "psnr_gap_db": got - ref["tuned"],
+        "log_descent_psnr": base, "jax_cpu_log_descent_psnr": ref["log_descent"],
+        "episode_s": seconds, "launches": {k: v for k, v in counts.items() if v}}
+    by_path["autotune_deconv"] = counts
+    psnr_gate("autotune_deconv", got, ref["tuned"])
+    psnr_gate("autotune_deconv log_descent", base, ref["log_descent"])
+    launches_are("autotune_deconv", counts, {"tv_denoise_chw": 30, "freq_divide": 30})
+
+    # gradients of training steps, card against CPU
+    def color_step(device):
+        deq_d, p = (deq, params) if device == dev else cpu_models["color_deq"]()
+        gt, y, psf = deq_observation(*DEQ_DECONV_CELLS[0], 77, device)
+        p = {"deq_r": p["deq_r"].clone().requires_grad_(),
+             "deq_l": p["deq_l"].clone().requires_grad_(),
+             "deq_prior": {k: v.clone().requires_grad_() for k, v in p["deq_prior"].items()}}
+        sn = DEQ_DECONV_CELLS[0][1]
+        stats = []
+        out = deq_d.solve(x0=y, rhos=0.05 + 5.0 * sn, lams=0.1 + 2.0 * sn,
+                          params=dict(p, psf=psf, y=y), real_output=True, stats=stats)
+        wrt = {"deq_r": p["deq_r"], "deq_l": p["deq_l"],
+               "deq_prior.convs.0.weight": p["deq_prior"]["convs.0.weight"]}
+        grads = torch.autograd.grad(torch.mean((out - gt) ** 2), list(wrt.values()))
+        return dict(zip(wrt, grads)), stats[0]
+
+    def nonneg_step(device):
+        deq_d, gt, y = (models if device == dev else cpu_models)["nonneg_deq"]()
+        p = {k: v.requires_grad_() for k, v in deq_d.init_params().items()}
+        stats = []
+        out = deq_d.solve(x0=y, rhos=0.1, lams=0.05, params=p, stats=stats)
+        (g,) = torch.autograd.grad(torch.mean((out - gt) ** 2), [p["deq_r"]])
+        return {"deq_r": g}, stats[0]
+
+    def unrolled_steps(device):
+        # noiseless: with noise 0.01 a 1e-7 relative change of y moves the
+        # CPU's own d loss / d lams by 1.4% (soft-threshold branches), so
+        # no card-against-CPU gate could hold there; noiseless, 4e-5
+        gt, y, _ = deq_observation(2.0, 0.0, 0, device, k=5)
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, point_spread_function(5, 2)) - y),
+                             dp.norm1(dp.grad(x, 0))], "admm", device=device)
+        us = UnrolledSolver(solver, max_iter=4, learned_params=True, rhos=0.5, lams=0.05)
+
+        def step(params, batch, generator):
+            return torch.mean((us.solve(x0=y, params=params) - gt) ** 2)
+
+        params = us.init_params()
+        rho0 = params["unroll_rhos"].clone().requires_grad_()
+        lam0 = params["unroll_lams"][0].clone().requires_grad_()
+        g = torch.autograd.grad(step({"unroll_rhos": rho0, "unroll_lams": (lam0,)}, None, None),
+                                [rho0, lam0])
+        trained = train_supervised(step, [None] * 4, params, epochs=1, lr=5e-3, log_every=0)
+        return {"d_unroll_rhos": g[0], "d_unroll_lams": g[1],
+                "trained_unroll_rhos": trained["unroll_rhos"],
+                "trained_unroll_lams": trained["unroll_lams"][0]}, None
+
+    def tuner_step(device):
+        t = tuner if device == dev else cpu_models["csmri_tuner"]()[0]
+        p = {k: v.requires_grad_() for k, v in t.policy_params.items()}
+        loss = torch.mean((t._episode(p, x0, s["params"]).real
+                           - torch.from_numpy(s["gt"]).to(device)) ** 2)
+        grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+        flat = torch.cat([g.reshape(-1) for g in grads if g is not None])
+        return {"policy": flat}, None
+
+    s = csmri.generate_sample(size=128, num_lines=40, sigma=0.05)
+    x0 = np.real(s["x0"]).astype(np.float32)
+    steps = {"deq_deconv_train_step": (color_step, {"freq_divide"}),
+             "deq_nonneg_train_step": (nonneg_step, {"freq_divide", "fused_admm_update"}),
+             "unrolled_train_4_steps": (unrolled_steps, {"freq_divide", "fused_admm_update"}),
+             "autotune_csmri_train_step": (tuner_step, {"tv_denoise_chw"})}
+    for name, (run, used) in steps.items():
+        (grads, stats), seconds, counts = timed(lambda: run(dev))
+        ref_grads, _ = run("cpu")
+        rel = {k: _grad_rel(grads[k], ref_grads[k]) for k in grads}
+        rec = {"max_rel_err_vs_cpu": rel, "seconds": seconds,
+               "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+               "launches": {k: v for k, v in counts.items() if v}}
+        if stats is not None:
+            ref = JAX_CPU_SPECIAL[name]
+            rec.update(forward_evaluations=stats["forward"]["evaluations"],
+                       backward_evaluations=stats["backward"]["evaluations"],
+                       jax_cpu_evaluations=[ref["forward_evaluations"],
+                                            ref["backward_evaluations"]])
+            stop_gate(name, stats, ref)
+            stop_gate(name, stats, ref, "backward")
+            n = stats["forward"]["evaluations"] + 1
+            launches_are(name, counts, dict.fromkeys(used, n))
+        elif name == "unrolled_train_4_steps":  # one gradient, then 4 steps: 5 x 4 iterations
+            launches_are(name, counts, dict.fromkeys(used, 20))
+        else:
+            launches_are(name, counts, dict.fromkeys(used, 30))
+        records[name] = rec
+        by_path[name] = counts
+        if not (rec["finite"] and all(v <= GRAD_REL_TOL for v in rel.values())):
+            failed.append(f"{name}: gradients {rel} (limit {GRAD_REL_TOL}) or non-finite")
+
+    # times: a training step of the color DEQ, the tuner's train, one f
+    # evaluation and one Anderson step against one plain ADMM iteration
+    _, step_s, _ = timed(lambda: color_step(dev))
+    records["deq_deconv_train_step"]["step_ms"] = step_s * 1e3
+    dataset = [{"x0": x0, "gt": s["gt"], **s["params"]}]
+    _, train_s, _ = timed(lambda: tuner.train(dataset, epochs=1, log_every=0))
+    records["autotune_csmri_train_step"]["train_step_ms"] = train_s * 1e3
+    gt, y, psf = deq_observation(*DEQ_DECONV_CELLS[0], 77, dev)
+    sn = DEQ_DECONV_CELLS[0][1]
+    p = dict(params, psf=psf, y=y)
+    solver = deq.internal
+    rho = torch.tensor((0.05 + 5.0 * sn) * float(params["deq_r"]), device=dev)
+    lam = torch.tensor((0.1 + 2.0 * sn) * float(params["deq_l"]), device=dev)
+    with torch.no_grad():
+        aux = solver.prepare_aux(y, p)
+        z0 = solver.pack(solver.initialize(y, p))
+
+        def f(z):
+            return solver.pack(solver._iter(tuple(solver.unpack(z)), rho, [lam], 0, p, aux))
+
+        m, D = 6, z0.numel()
+        X = z0.reshape(1, 1, D).repeat(1, m, 1) + 1e-3 * torch.randn(1, m, D, device=dev)
+        F = f(z0).reshape(1, 1, D).repeat(1, m, 1)
+        rhs = torch.zeros(1, m + 1, 1, device=dev)
+        rhs[:, 0] = 1.0
+
+        def anderson_step():  # one full-window update and its f, no stop test
+            alpha = _mix_weights(X, F, 1e-4, rhs)
+            xk = torch.einsum("bn,bnd->bd", alpha, F)
+            F[:, 0] = f(xk.reshape(z0.shape)).reshape(1, D)
+            X[:, 0] = xk
+
+        timing = {"f_eager_ms": time_ms(lambda: f(z0), 10, 3, graph=False),
+                  "f_device_ms": time_ms(lambda: f(z0), 10, 3),
+                  "anderson_step_eager_ms": time_ms(anderson_step, 10, 3, graph=False),
+                  "f_kernel_ms": _kernel_ms(lambda: f(z0)),
+                  "anderson_step_kernel_ms": _kernel_ms(anderson_step)}
+        deq_obs = _marginal(lambda k: anderson(f, z0, threshold=k, eps=-1.0), 8, 24, reps=3,
+                            estimates=3)
+        # the same steps without the stop test's host read
+        noread_obs = _marginal(lambda k: [anderson_step() for _ in range(k)], 8, 24, reps=3,
+                               estimates=3)
+        r24, l24 = rho.expand(24), lam.expand(24)
+        admm_obs = _marginal(lambda k: solver.solve(x0=y, rhos=r24[:k], lams=l24[:k], max_iter=k,
+                                                    params=p), 8, 24, reps=3, estimates=3)
+    # TV's backward recomputes the plain version under autograd: its cost at
+    # the tuners' shape (1x128x128, the "tv" prior's 5 iterations)
+    v = torch.rand(1, 128, 128, device=dev, requires_grad=True)
+    lam_tv = torch.full((1,), 0.05, device=dev)
+    timing["tv_forward_ms"] = time_ms(lambda: kernels.tv_denoise_chw(v.detach(), lam_tv, 5),
+                                      10, 3, graph=False)
+    timing["tv_forward_backward_ms"] = time_ms(
+        lambda: torch.autograd.grad(kernels.tv_denoise_chw(v, lam_tv, 5).sum(), v), 10, 3,
+        graph=False)
+    timing.update(deq_its_per_sec=statistics.median(deq_obs), deq_obs=deq_obs,
+                  admm_its_per_sec=statistics.median(admm_obs), admm_obs=admm_obs,
+                  span="8-24", statistic="median of 3 best-of-3")
+    timing["anderson_cost_per_iteration"] = (timing["admm_its_per_sec"]
+                                             / timing["deq_its_per_sec"] - 1)
+    # the stop test's host read: a marginal DEQ step less a marginal step
+    # without the read
+    timing.update(noread_its_per_sec=statistics.median(noread_obs), noread_obs=noread_obs)
+    timing["stop_read_ms_per_step"] = (1e3 / timing["deq_its_per_sec"]
+                                       - 1e3 / timing["noread_its_per_sec"])
+    records["deq_deconv_timing"] = timing
+    emit({"phase": "special", "config": "color DEQ deconv 1x3x128x128 (distilled_color nc=96 "
+          "nb=10, deq_deconv weights, f_thres 24, b_thres 16); CS-MRI DEQ 1x1x128x128 "
+          "(distilled_gray nc=64 nb=10, deq_csmri); tuners: autotune_csmri, autotune_deconv "
+          "(30 iterations)", "psnr_tolerance_db": PSNR_TOL_DB, "grad_tolerance": GRAD_REL_TOL,
+          "records": records, "card": card})
+    if failed:
+        raise AssertionError("special: " + "; ".join(failed))
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2157,6 +2641,7 @@ def main() -> int:
     by_path.update(phase_family(dp, kernels, dev, card, flagship_its))
     by_path.update(phase_algos(dp, kernels, dev, card))
     by_path.update(phase_fast(dp, kernels, dev, card))
+    by_path.update(phase_special(dp, kernels, dev, card))
     # each kernel's count on the main-path solve that is its own; bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
     # rows (BSRMat.route), and phase check_bsr holds the tile kernel; nor

@@ -25,6 +25,11 @@ hot kernels are hand-written for Hopper (``ops/kernels.py``, sources in
   3-D plain) and the FFDNet family with shipped weights, gray and color,
   fused with TV, in bfloat16, as ensembles and as the x8 self-ensemble
   (``deep_prior(x8=True)``);
+* the specializations (``dp.specialize``, ``dp.train``): unrolling with
+  learned schedules, the deep-equilibrium solver with its implicit
+  backward (Anderson and Broyden), the RL tuner (direct backprop and
+  DDPG) and the supervised training loop, with the shipped trained
+  solvers' weights;
 * the LP path (``dp.algo.lp``: ``solve_lp``, ``LPProblem``,
   ``LPSolverADMM``, the scenario-consensus solver, and ``BSRMat`` on the
   ``csr_matvec`` / ``bsr_matvec`` kernels) with the energy-planning
@@ -34,9 +39,9 @@ hot kernels are hand-written for Hopper (``ops/kernels.py``, sources in
 __version__ = "0.1.0"
 
 from . import algo, contrib, linalg, linop, ops, proxfn, utils
-from .algo import (ADMM, ADMM_vxu, HQS, Algorithm, LinearizedADMM, PockChambolle, Problem,
-                   ProximalGradientDescent, compile, log_descent, optimize, specialize, train,
-                   visualize)
+from .algo import (ADMM, ADMM_vxu, HQS, Algorithm, AutoTuneSolver, DEQSolver, LinearizedADMM,
+                   PockChambolle, Problem, ProximalGradientDescent, UnrolledSolver, compile,
+                   log_descent, optimize, specialize, train, visualize)
 from .linalg import LinearSolveConfig, linear_solve
 from .linop import (BlackBox, Constant, LinOp, LinOpFactory, Placeholder, Variable, adjoint, conv,
                     conv_doe, copy, est_CompGraph_norm, est_norm, eval, grad, gram, mosaic,

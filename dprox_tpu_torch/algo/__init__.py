@@ -10,3 +10,7 @@ from .primitives import SOLVERS, compile, specialize, optimize, train, visualize
 from .tune import log_descent, get_rho_sigma_admm
 from .absorb import absorb_all_linops
 from .equil import stochastic_equilibrate
+from . import special
+from .special import AutoTuneSolver, DEQSolver, UnrolledSolver
+
+specialization = special  # the reference's name (dprox.algo.specialization)

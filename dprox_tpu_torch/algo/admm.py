@@ -113,6 +113,14 @@ class ADMM(Algorithm):
         d_scale = torch.maximum(nrm(y), nrm(Ktv)) + 1e-12
         return {"r_primal": r_p / p_scale, "r_dual": nrm(s) / d_scale}
 
+    @property
+    def nparams(self):
+        return len(self.psi_fns) + 1
+
+    @property
+    def state_split(self):
+        return [1, [len(self.psi_fns)], [len(self.psi_fns)]]
+
 
 class LinearizedADMM(ADMM):
     """x-update linearized around the current iterate."""

@@ -1,14 +1,19 @@
 """Algorithm base: runs proxfn lists as a Python iteration loop.
 
-Counterpart of dprox_tpu/algo/base.py (``solve``,
-``solve_with_residuals``, ``_schedule``). The JAX package scans a pure
-step function under jit; here the same step
+Counterpart of dprox_tpu/algo/base.py (``solve``, ``solve_with_residuals``,
+``solve_until``, ``iters``, ``pack`` / ``unpack``, ``_schedule``). The JAX
+package scans a pure step function under jit; here the same step
 
     state_{k+1} = _iter(state_k, rho_k, lam_k, step_k, params, aux)
 
 runs eagerly in a Python loop. The (rho, lam) schedules are moved to the
 solver's device once per solve and indexed there, so the loop never
-copies a scalar between host and device.
+copies a scalar between host and device (``solve_until`` reads its two
+residuals once an iteration, its stop test).
+
+State is a tuple (``(x, v_tuple, u_tuple)`` for ADMM); ``pack`` /
+``unpack`` flatten it along the channel axis for the RL tuner and the
+DEQ's fixed-point engine.
 """
 from __future__ import annotations
 
@@ -16,12 +21,57 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Any
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..linop.base import Params
 from ..proxfn.base import ProxFn
 from ..utils.misc import resolve_device, to_tensor
 
 Array = torch.Tensor
+
+
+_COMPLEX_TAG = "__complex_pair__"
+
+
+def encode_complex(tree):
+    """Replace complex tensors (at any depth of nested dicts, lists and
+    tuples) by ``{re, im}`` float pairs: the JAX package's boundary format.
+    No torch path needs it; it exists so that data written for the JAX
+    package's boundaries reads the same here."""
+    if isinstance(tree, dict):
+        return {k: encode_complex(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(encode_complex(v) for v in tree)
+    if isinstance(tree, (np.ndarray, torch.Tensor)) and tree.dtype in (
+            np.complex64, np.complex128, torch.complex64, torch.complex128):
+        return {_COMPLEX_TAG + "re": tree.real, _COMPLEX_TAG + "im": tree.imag}
+    return tree
+
+
+def decode_complex(tree):
+    """Inverse of ``encode_complex``: ``{re, im}`` pairs back to complex
+    tensors."""
+    if isinstance(tree, dict):
+        if _COMPLEX_TAG + "re" in tree:
+            re = torch.as_tensor(tree[_COMPLEX_TAG + "re"])
+            return torch.complex(re, torch.as_tensor(tree[_COMPLEX_TAG + "im"], device=re.device))
+        return {k: decode_complex(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(decode_complex(v) for v in tree)
+    return tree
+
+
+def params_to(params, device):
+    """A solve's ``params`` with every array and tensor on ``device``,
+    nested dicts, lists and tuples included (a denoiser's weight dict
+    under its ``param_key``); ``.to`` keeps a tensor's autograd graph."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    if isinstance(params, (np.ndarray, torch.Tensor)):
+        return to_tensor(params, device=device)
+    return params
 
 
 class IterAux(NamedTuple):
@@ -159,9 +209,7 @@ class Algorithm:
         x0 = self._prepare_x0(x0)
         rhos, lam_list = self.defaults(rhos, lams, max_iter)
         # placeholder values go to the solver's device once, not per iteration
-        params = {k: to_tensor(v, device=self.device)
-                  if isinstance(v, (np.ndarray, torch.Tensor)) else v
-                  for k, v in (params or {}).items()}
+        params = params_to(dict(params or {}), self.device)
         state = self.initialize(x0, params)
         aux = self.prepare_aux(x0, params)
         for it in range(max_iter):
@@ -169,10 +217,10 @@ class Algorithm:
             lam = [l[it] for l in lam_list]
             p_it = dict(params, __step__=it)
             new = self._iter(state, rho, lam, it, p_it, aux)
-            if on_step is not None:
-                on_step(it, state, new, rho, lam, p_it)
+            if on_step is not None and on_step(it, state, new, rho, lam, p_it):
+                return new, orig_shape, it + 1
             state = new
-        return state, orig_shape
+        return state, orig_shape, max_iter
 
     # ------------------------------------------------------------------ #
     # Solve
@@ -180,15 +228,24 @@ class Algorithm:
 
     def solve(self, x0=None, rhos=None, lams=None, max_iter: int = 24,
               params: Optional[Params] = None, callback: Optional[Callable] = None,
-              real_output: bool = False):
+              real_output: bool = False, return_full_states: bool = False):
         """Run the solver; returns x* (its real part with ``real_output``,
         for a complex state). ``callback(iter=, state=, rho=, lam=)`` runs
-        after every iteration."""
-        def on_step(it, prev, new, rho, lam, p_it):
-            callback(iter=it, state=new, rho=rho, lam=lam)
+        after every iteration. ``return_full_states``: the trajectory
+        instead, the state after each iteration stacked along a new leading
+        axis (x: [max_iter, B, ...]), as the JAX package's jitted solve
+        returns it."""
+        traj = []
 
-        state, orig_shape = self._run(x0, rhos, lams, max_iter, params,
-                                      on_step if callback is not None else None)
+        def on_step(it, prev, new, rho, lam, p_it):
+            if callback is not None:
+                callback(iter=it, state=new, rho=rho, lam=lam)
+            if return_full_states:
+                traj.append(new)
+
+        state, orig_shape, _ = self._run(x0, rhos, lams, max_iter, params, on_step)
+        if return_full_states:
+            return tree_map(lambda *ts: torch.stack(ts), *traj)
         out = self._restore_shape(state[0], orig_shape)
         return out.real if real_output else out
 
@@ -210,7 +267,82 @@ class Algorithm:
             for k in res:
                 res[k].append(r[k])
 
-        state, orig_shape = self._run(x0, rhos, lams, max_iter, params, on_step)
+        state, orig_shape, _ = self._run(x0, rhos, lams, max_iter, params, on_step)
         out = self._restore_shape(state[0], orig_shape)
         return (out.real if real_output else out,
                 {k: torch.stack(v) if v else torch.zeros(0) for k, v in res.items()})
+
+    def solve_until(self, x0=None, rhos=None, lams=None, max_iter: int = 100,
+                    tol: float = 1e-4, params: Optional[Params] = None,
+                    real_output: bool = True):
+        """Solve until both relative residuals fall to ``tol`` or below (or
+        ``max_iter``); returns ``(x, iterations)``. The stop test reads the
+        two residuals to the host once an iteration. Needs an algorithm
+        with residual tracking (the ADMM family)."""
+        def on_step(it, prev, new, rho, lam, p_it):
+            r = self.residuals(prev, new, rho, p_it)
+            if r is None:
+                raise NotImplementedError(
+                    f"{type(self).__name__} does not track primal/dual residuals; "
+                    "solve_until needs the ADMM family")
+            return max(torch.stack([r["r_primal"], r["r_dual"]]).tolist()) <= tol
+
+        state, orig_shape, k = self._run(x0, rhos, lams, max_iter, params, on_step)
+        out = self._restore_shape(state[0], orig_shape)
+        return (out.real if real_output else out), k
+
+    def iters(self, state, rhos, lam_list, max_iter: int, params: Optional[Params] = None,
+              offsets: Optional[IterAux] = None, x_ref=None):
+        """Advance ``state`` by ``max_iter`` iterations (the RL tuner's
+        inner loop). ``rhos`` / ``lam_list`` take every form ``defaults``
+        takes, [B, max_iter] per sample included; ``offsets``: the
+        ``prepare_aux`` of ``x_ref`` (default: of ``state[0]``), computed
+        here when not given."""
+        params = params_to(dict(params or {}), self.device)
+        if offsets is None:
+            offsets = self.prepare_aux(x_ref if x_ref is not None else state[0], params)
+        rhos, lam_tuple = self.defaults(rhos, lam_list, max_iter)
+        for it in range(max_iter):
+            state = self._iter(state, rhos[it], [l[it] for l in lam_tuple], it,
+                               dict(params, __step__=it), offsets)
+        return state
+
+    # ------------------------------------------------------------------ #
+    # State helpers: the tuple state flattened along the channel axis
+    # ------------------------------------------------------------------ #
+
+    def pack(self, state) -> Array:
+        flat = []
+        for s in state:
+            if isinstance(s, (list, tuple)):
+                flat.extend(s)
+            else:
+                flat.append(s)
+        return torch.cat(flat, dim=1)
+
+    def unpack(self, tensor: Array):
+        """Inverse of ``pack``: a list with one tensor for each single
+        block of ``state_split`` and a list for each group."""
+        parts = torch.tensor_split(tensor, self.state_dim, dim=1)
+        out, idx = [], 0
+        for d in self.state_split:
+            if d == 1:
+                out.append(parts[idx])
+                idx += 1
+            else:
+                out.append(list(parts[idx:idx + d[0]]))
+                idx += d[0]
+        return out
+
+    @property
+    def state_dim(self) -> int:
+        return sum(s if isinstance(s, int) else sum(s) for s in self.state_split)
+
+    @property
+    def state_split(self):
+        """The state's blocks: 1 for a single tensor, [n] for a group of n."""
+        raise NotImplementedError
+
+    @property
+    def nparams(self):
+        raise NotImplementedError

@@ -94,3 +94,11 @@ class ConsensusADMM(Algorithm):
         r_d = rho * len(xs) * nrm([z - z_prev])
         d_scale = rho * nrm(us) + 1e-12
         return {"r_primal": r_p / p_scale, "r_dual": r_d / d_scale}
+
+    @property
+    def nparams(self):
+        return len(self.psi_fns) + 1
+
+    @property
+    def state_split(self):
+        return [1, [len(self.psi_fns)], [len(self.psi_fns)]]

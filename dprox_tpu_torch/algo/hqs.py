@@ -25,3 +25,7 @@ class HQS(ADMM):
 
     def residuals(self, prev_state, state, rho, params):
         return None
+
+    @property
+    def state_split(self):
+        return [1, [len(self.psi_fns)]]

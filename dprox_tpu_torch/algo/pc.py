@@ -44,6 +44,10 @@ class PockChambolle(ADMM):
     def residuals(self, prev_state, state, rho, params):
         return None  # the PDHG state does not fit the consensus-residual template
 
+    @property
+    def state_split(self):
+        return [1, [len(self.psi_fns)], 1]
+
     def _iter(self, state, rho, lam, step, params, aux):
         x, z, xbar = state
         Kxbar = self.K_forward(xbar, params)

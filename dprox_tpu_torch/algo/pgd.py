@@ -42,3 +42,11 @@ class ProximalGradientDescent(Algorithm):
         v = x - rho * self.diff_fn.grad(x, params)
         return (self.prox_fn.prox(v, lam[0], params=params, step=step,
                                   offset=aux.offsets[0]),)
+
+    @property
+    def state_split(self):
+        return [1]
+
+    @property
+    def nparams(self):
+        return len(self.psi_fns) + 1

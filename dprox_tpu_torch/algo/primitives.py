@@ -1,8 +1,10 @@
 """User primitives (counterpart of dprox_tpu/algo/primitives.py).
 
 ``compile`` partitions a proxfn objective and instantiates the chosen
-solver on a device; ``optimize`` runs the absorb pass. ``specialize`` and
-``train`` come with ROADMAP Queue 1 item 5, ``visualize`` with item 9.
+solver on a device; ``specialize`` wraps it for unrolling, DEQ or RL
+tuning; ``train`` runs the supervised loop (or the tuner's own);
+``optimize`` runs the absorb pass. ``visualize`` comes with ROADMAP
+Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -48,11 +50,21 @@ def optimize(prox_fns: List[ProxFn], merge=False, absorb=True):
 
 
 def specialize(solver, method: str = "deq", **kwargs):
-    raise NotImplementedError("specializations come with ROADMAP Queue 1 item 5")
+    """Wrap a compiled solver for learning: "unroll", "deq" or "rl"."""
+    from .special import SPECIALIZATIONS
+
+    return SPECIALIZATIONS[method](solver, **kwargs)
 
 
 def train(solver=None, step_fn=None, dataset=None, **kwargs):
-    raise NotImplementedError("training comes with ROADMAP Queue 1 item 5")
+    """An ``AutoTuneSolver`` trains itself; otherwise the supervised loop
+    ``special.training.train_supervised``."""
+    from .special.rl import AutoTuneSolver
+    from .special.training import train_supervised
+
+    if isinstance(solver, AutoTuneSolver):
+        return solver.train(dataset, **kwargs)
+    return train_supervised(step_fn=step_fn, dataset=dataset, **kwargs)
 
 
 def visualize(prox_fns=None, filename=None):

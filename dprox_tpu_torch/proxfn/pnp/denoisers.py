@@ -9,7 +9,11 @@ through the fused TV kernel wrapper (ops/kernels.py::tv_denoise_chw),
 which launches the CUDA kernel for CUDA tensors and runs its plain version
 for CPU ones; 3-D TV couples the bands and runs as plain PyTorch, as the
 JAX package runs it outside its kernel. Networks are ``nn.Module``s in
-eval mode with frozen parameters; trainable priors come later.
+eval mode with frozen parameters; ``denoise(x, sigma, params)`` runs a
+network with the weight dict ``params`` in place of its own
+(``torch.func.functional_call``), so weights that require grad are
+trained through the frozen module, as the JAX package threads its params
+pytree.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import copy
 from typing import Optional
 
 import torch
+from torch.func import functional_call
 
 from ...models import FFDNet
 from ...models.tv import tv_denoising3d_chw
@@ -29,17 +34,29 @@ class Denoiser:
 
     #: spatial receptive-field radius in input pixels (None: unknown)
     receptive_radius = None
+    #: the weight dict ``denoise(..., params=)`` takes (None: no network)
+    params = None
 
     def to(self, device) -> "Denoiser":
         return self
 
-    def denoise(self, x: torch.Tensor, sigma) -> torch.Tensor:
+    def denoise(self, x: torch.Tensor, sigma, params=None) -> torch.Tensor:
         """x: [B,C,H,W]; sigma: tensor holding one noise level or one per
-        batch element."""
+        batch element; ``params``: a network's weight dict (its
+        ``state_dict`` names) in place of its own weights."""
         raise NotImplementedError
 
-    def __call__(self, x, sigma):
-        return self.denoise(x, sigma)
+    def __call__(self, x, sigma, params=None):
+        return self.denoise(x, sigma, params)
+
+
+def denoise_with(denoiser, x, sigma, params=None):
+    """``denoiser.denoise``, handing it ``params`` only where given, so a
+    caller's own denoiser whose ``denoise`` takes no ``params`` composes
+    with the wrappers below and with ``deep_prior``."""
+    if params is None:
+        return denoiser.denoise(x, sigma)
+    return denoiser.denoise(x, sigma, params)
 
 
 class _NetDenoiser(Denoiser):
@@ -68,16 +85,27 @@ class _NetDenoiser(Denoiser):
         self.module.to(device)
         return self
 
+    @property
+    def params(self):
+        """The network's weights as a dict of tensors (``state_dict``
+        names), the form ``denoise(..., params=)`` takes."""
+        return dict(self.module.state_dict())
+
+    def _net(self, x, sigma, params):
+        if params is None:
+            return self.module(x, sigma)
+        return functional_call(self.module, params, (x, sigma))
+
 
 class Denoiser2D(Denoiser):
     """Grayscale model applied per band, the bands folded into the batch."""
 
-    def _denoise_gray(self, x, sigma):
+    def _denoise_gray(self, x, sigma, params=None):
         raise NotImplementedError
 
-    def denoise(self, x, sigma):
+    def denoise(self, x, sigma, params=None):
         B, C, H, W = x.shape
-        out = self._denoise_gray(x.reshape(B * C, 1, H, W), sigma)
+        out = self._denoise_gray(x.reshape(B * C, 1, H, W), sigma, params)
         return out.reshape(B, C, H, W)
 
 
@@ -88,8 +116,8 @@ class FFDNetDenoiser(_NetDenoiser, Denoiser2D):
                  nc: int = 64, nb: int = 15, residual: bool = False):
         super().__init__(1, params, ckpt_path, nc, nb, residual)
 
-    def _denoise_gray(self, x, sigma):
-        return self.module(x, sigma)
+    def _denoise_gray(self, x, sigma, params=None):
+        return self._net(x, sigma, params)
 
 
 class FFDNetColorDenoiser(_NetDenoiser):
@@ -99,8 +127,8 @@ class FFDNetColorDenoiser(_NetDenoiser):
                  nc: int = 96, nb: int = 12, residual: bool = False):
         super().__init__(3, params, ckpt_path, nc, nb, residual)
 
-    def denoise(self, x, sigma):
-        return self.module(x, sigma)
+    def denoise(self, x, sigma, params=None):
+        return self._net(x, sigma, params)
 
 
 class TVDenoiser(Denoiser):
@@ -113,7 +141,7 @@ class TVDenoiser(Denoiser):
         self.iter_num = iter_num
         self.use_3dtv = use_3dtv
 
-    def denoise(self, x, sigma):
+    def denoise(self, x, sigma, params=None):
         B, C, H, W = x.shape
         lam = torch.as_tensor(sigma, dtype=x.dtype, device=x.device).reshape(-1)
         if self.use_3dtv:
@@ -130,18 +158,22 @@ class Augment(Denoiser):
     def __init__(self, denoiser: Denoiser):
         self.inner = denoiser
 
+    @property
+    def params(self):
+        return self.inner.params
+
     def to(self, device):
         self.inner.to(device)
         return self
 
-    def denoise(self, x, sigma):
+    def denoise(self, x, sigma, params=None):
         outs = []
         for k in range(4):
             xr = torch.rot90(x, k, dims=(-2, -1))
-            o = self.inner.denoise(xr, sigma)
+            o = denoise_with(self.inner, xr, sigma, params)
             outs.append(torch.rot90(o, -k, dims=(-2, -1)))
             xf = torch.flip(xr, dims=(-1,))
-            of = self.inner.denoise(xf, sigma)
+            of = denoise_with(self.inner, xf, sigma, params)
             outs.append(torch.rot90(torch.flip(of, dims=(-1,)), -k, dims=(-2, -1)))
         return sum(outs) / 8.0
 
@@ -162,13 +194,22 @@ class BF16Denoiser(Denoiser):
         if r is not None:
             self.receptive_radius = r
 
+    @property
+    def params(self):
+        return self.denoiser.params
+
     def to(self, device):
         self.denoiser.to(device)
         return self
 
-    def denoise(self, x, sigma):
+    def denoise(self, x, sigma, params=None):
+        """``params`` (float32 or bfloat16) are cast to bfloat16; the cast
+        is differentiable."""
         sigma = torch.as_tensor(sigma, device=x.device).to(torch.bfloat16)
-        return self.denoiser.denoise(x.to(torch.bfloat16), sigma).to(torch.float32)
+        if params is not None:
+            params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                      for k, v in params.items()}
+        return denoise_with(self.denoiser, x.to(torch.bfloat16), sigma, params).to(torch.float32)
 
 
 class EnsembleDenoiser(Denoiser):
@@ -188,15 +229,20 @@ class EnsembleDenoiser(Denoiser):
         if all(r is not None for r in radii):
             self.receptive_radius = max(radii)
 
+    @property
+    def params(self):
+        return [d.params for d in self.denoisers]
+
     def to(self, device):
         for d in self.denoisers:
             d.to(device)
         return self
 
-    def denoise(self, x, sigma):
+    def denoise(self, x, sigma, params=None):
+        """``params``: None, or one weight dict (or None) per denoiser."""
         out = 0.0
-        for w, d in zip(self.weights, self.denoisers):
-            out = out + w * d.denoise(x, sigma)
+        for i, (w, d) in enumerate(zip(self.weights, self.denoisers)):
+            out = out + w * denoise_with(d, x, sigma, None if params is None else params[i])
         return out
 
 
@@ -213,12 +259,16 @@ class DeepTVDenoiser(Denoiser):
         self.tv = TVDenoiser(iter_num=tv_iter)
         self.weight = weight
 
+    @property
+    def params(self):
+        return self.deep.params
+
     def to(self, device):
         self.deep.to(device)
         return self
 
-    def denoise(self, x, sigma):
-        d = self.deep.denoise(x, sigma)
+    def denoise(self, x, sigma, params=None):
+        d = denoise_with(self.deep, x, sigma, params)
         t = self.tv.denoise(x, sigma)
         if self.weight is not None:
             return self.weight * d + (1 - self.weight) * t

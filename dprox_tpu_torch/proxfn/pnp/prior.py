@@ -1,11 +1,14 @@
 """Plug-and-play deep denoiser prior.
 
 Counterpart of dprox_tpu/proxfn/pnp/prior.py: ``deep_prior`` (with
-``x8``; without trainable or unrolled parameters and without the spatial
-mesh) and ``get_denoiser`` for TV and the FFDNet family whose weights ship
+``x8``, ``param_key`` and ``unroll_step``; without the spatial mesh) and
+``get_denoiser`` for TV and the FFDNet family whose weights ship
 in ``weights/``, gray and color, with the DeepTV fusions and the
 bfloat16 flagship. The prox of the learned prior is a denoiser evaluated
-at a noise level derived from lam.
+at a noise level derived from lam. Trainable denoiser weights travel in
+the solver's ``params`` dict under ``param_key`` (a weight dict with the
+network's ``state_dict`` names), so unrolled and DEQ training
+differentiate through the prox.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from ...utils.misc import safe_sqrt
 from ..base import ProxFn
 from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, FFDNetColorDenoiser,
-                        FFDNetDenoiser, TVDenoiser)
+                        FFDNetDenoiser, TVDenoiser, denoise_with)
 from .hub import find_weights as _find_weights
 
 
@@ -80,10 +83,16 @@ def get_denoiser(kind: str) -> Denoiser:
 
 class deep_prior(ProxFn):
     """``x8=True`` wraps the denoiser in the dihedral self-ensemble
-    ``Augment`` (eight denoiser calls per prox)."""
+    ``Augment`` (eight denoiser calls per prox). ``param_key``: the
+    denoiser runs with ``params[param_key]`` in place of its own weights
+    when the solve's params hold that key. ``unroll_step=n``: n unshared
+    copies of the weights, stacked along a leading axis
+    (``unrolled_params``), iteration k taking copy min(k, n - 1); a
+    ``params[param_key]`` is then stacked the same way."""
 
     def __init__(self, linop, denoiser: Union[str, Denoiser] = "ffdnet", x8: bool = False,
-                 clamp: bool = False, sqrt: bool = False):
+                 clamp: bool = False, trainable: bool = False, unroll_step: Optional[int] = None,
+                 sqrt: bool = False, param_key: Optional[str] = None):
         super().__init__(linop)
         self.name = denoiser if isinstance(denoiser, str) else type(denoiser).__name__
         self.denoiser = get_denoiser(denoiser) if isinstance(denoiser, str) else denoiser
@@ -91,11 +100,32 @@ class deep_prior(ProxFn):
             self.denoiser = Augment(self.denoiser)
         self.clamp = clamp
         self.sqrt = sqrt
+        self.trainable = trainable
+        self.param_key = param_key
+        self.unroll = unroll_step is not None
+        self.unroll_step = unroll_step
+        if self.unroll:
+            self.unrolled_params = {k: torch.stack([v] * unroll_step)
+                                    for k, v in self.denoiser.params.items()}
 
     def to(self, device):
         super().to(device)
         self.denoiser.to(device)
+        if self.unroll:
+            self.unrolled_params = {k: v.to(device) for k, v in self.unrolled_params.items()}
         return self
+
+    def _denoiser_params(self, params, step):
+        if self.param_key is not None and params and self.param_key in params:
+            p = params[self.param_key]
+        elif self.unroll:
+            p = self.unrolled_params
+        else:
+            return None  # the denoiser's own weights
+        if self.unroll:
+            idx = min(max(int(step or 0), 0), self.unroll_step - 1)
+            p = {k: v[idx] for k, v in p.items()}
+        return p
 
     def eval(self, v):
         raise NotImplementedError("deep prior cannot be explicitly evaluated")
@@ -107,8 +137,9 @@ class deep_prior(ProxFn):
         if v.is_complex():  # denoise the real part, copied out of the complex layout
             v = v.real.contiguous()
         inp = v[:, None] if v.ndim == 3 else v
-        out = self.denoiser.denoise(inp, sigma.reshape(-1))
+        out = denoise_with(self.denoiser, inp, sigma.reshape(-1),
+                           self._denoiser_params(params, step))
         return out.to(v.dtype).reshape(v.shape)
 
     def __repr__(self):
-        return f'deep_prior(denoiser="{self.name}")'
+        return f'deep_prior(denoiser="{self.name}", unroll={self.unroll})'

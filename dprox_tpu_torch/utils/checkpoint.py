@@ -4,7 +4,10 @@ The shipped ``weights/*.msgpack`` files were written by
 ``flax.serialization.to_bytes``. This module decodes the subset of
 msgpack those files use (maps, strings, binary, arrays, ints, floats,
 nil, bool) plus flax's extension type 1 (ndarray), whose payload is
-itself a msgpack triple ``(shape, dtype_name, raw_bytes)``.
+itself a msgpack triple ``(shape, dtype_name, raw_bytes)``. The
+converters below carry the JAX package's flax params (from a msgpack, or
+as numpy arrays) into the port's modules: FFDNet, the RL tuner's networks
+and a trained DEQ's params.
 """
 from __future__ import annotations
 
@@ -121,3 +124,31 @@ def ffdnet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         sd[f"convs.{i}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
     return sd
+
+
+def convnet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The RL tuner's flax ``ResNetPolicy`` / ``CriticNet`` params ->
+    ``algo/special/rl.py``'s module state dict. flax names layers by
+    creation order: ``Conv_0`` (the stride-2 stem), ``Conv_1`` ... (two a
+    residual block), ``Dense_0`` ... (the policy's hidden layer, rho,
+    sigmas and stop; the critic's three); they become ``convs.i`` (HWIO ->
+    OIHW) and ``dense.j`` (the [in, out] kernel transposed)."""
+    sd = {}
+    for name, layer in tree["params"].items():
+        kind, index = name.split("_")
+        kernel = np.asarray(layer["kernel"], np.float32)
+        prefix = {"Conv": "convs", "Dense": "dense"}[kind]
+        weight = kernel.transpose(3, 2, 0, 1) if kind == "Conv" else kernel.T
+        sd[f"{prefix}.{index}.weight"] = torch.from_numpy(np.array(weight, order="C"))
+        sd[f"{prefix}.{index}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+    return sd
+
+
+def deq_params_from_flax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A trained DEQ's params (``weights/deq_*.msgpack``, or the JAX
+    package's ``{deq_r, deq_l, deq_prior}`` as numpy arrays) -> the port's
+    ``params``: ``deq_r`` and ``deq_l`` as float32 scalars, ``deq_prior``
+    through ``ffdnet_state_dict_from_flax``."""
+    return {"deq_r": torch.tensor(np.float32(tree["deq_r"])),
+            "deq_l": torch.tensor(np.float32(tree["deq_l"])),
+            "deq_prior": ffdnet_state_dict_from_flax(tree["deq_prior"])}

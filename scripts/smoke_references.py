@@ -19,14 +19,25 @@ contrib.csmri.generate_sample phantoms at 128x128; the face blurred by
 point_spread_function(15, 2), every second pixel kept and upsampled by
 the cubic resize, in float64 with numpy (chip_smoke.py::sr_observation);
 the 8-band 64x64 cube of examples/papers/hsi_suite.py on the synthetic
-face, with the noise of tests/paper/test_hsi_grid.py.
+face, with the noise of tests/paper/test_hsi_grid.py. The special phase's
+(key "special"): the shipped trained solvers (weights/deq_deconv,
+deq_csmri, autotune_csmri, autotune_deconv) on the face's 128x128 crop
+blurred in float64 with numpy plus numpy noise (deq_observation) and on
+the CS-MRI phantoms, with Anderson's evaluations of f and the residuals
+its stop test read. Key "cross_task": the per-sample PSNRs that
+tests/test_torch_special_golden.py pins for the deconv and demosaic
+policies (their samples need sklearn's photographs).
+
+Only the special phase (about 2 minutes) and the cross-task goldens:
+    JAX_PLATFORMS=cpu python scripts/smoke_references.py special
 """
 import json
 import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import jax  # noqa: E402
 
@@ -149,12 +160,247 @@ def fast():
     return out
 
 
+DEQ_DECONV_CELLS = [(5.0, 0.01), (5.0, 0.02), (7.0, 0.03)]  # (psf sigma, noise) held out
+DEQ_CSMRI_CELLS = [(50, 0.0), (40, 0.05)]  # tests/paper/test_csmri_grid.py::DEQ_GRID
+
+
+def deq_observation(sig, sn, seed, k=15, size=128):
+    """(gt, y, psf [1, 3, k, k]) float32: the face cropped to size, blurred
+    circularly by point_spread_function(k, sig) in float64 with numpy, plus
+    sn * RandomState(seed) noise (chip_smoke.py::deq_observation)."""
+    gt = imaging._synthetic_face(512, 512)[:size, :size].transpose(2, 0, 1)[None]
+    psf = imaging.point_spread_function(k, sig)
+    otf = psf2otf(np.asarray(psf).squeeze(), (size, size))
+    y = np.real(np.fft.ifft2(otf * np.fft.fft2(gt.astype(np.float64))))
+    y = y + sn * np.random.RandomState(seed).randn(*y.shape)
+    psf13 = np.tile(np.transpose(psf, (2, 0, 1))[None], (1, 3, 1, 1))
+    return gt.astype(np.float32), y.astype(np.float32), psf13.astype(np.float32)
+
+
+class EngineLog:
+    """Records each fixed-point solve's evaluations of f and the relative
+    residual ||f(x) - x|| / (1e-5 + ||f(x)||) of each, through
+    jax.debug.callback. Each engine call traced gets its own slot (a cached
+    jit program keeps its slots), and ``take`` groups the evaluations run
+    since the last take by slot, in the order they ran (forward, then
+    backward)."""
+
+    def __init__(self):
+        from dprox_tpu.algo.special import fixed_point
+
+        self.slots = 0
+        self.seen = []
+        engine = fixed_point.anderson
+
+        def logged(f, x0, **kw):
+            slot = self.slots
+            self.slots += 1
+
+            def note(x, fx):
+                x, fx = np.asarray(x, np.float64), np.asarray(fx, np.float64)
+                self.seen.append((slot, float(np.linalg.norm(fx - x)
+                                              / (1e-5 + np.linalg.norm(fx)))))
+
+            def g(z):
+                out = f(z)
+                jax.debug.callback(note, z, out)
+                return out
+
+            return engine(g, x0, **kw)
+
+        fixed_point.FIXED_POINT_SOLVERS["anderson"] = logged
+
+    def take(self):
+        """[(evaluations, the residuals Anderson's stop test reads: those of
+        the 6th evaluation on)] of each slot run since the last take."""
+        jax.effects_barrier()
+        order = list(dict.fromkeys(slot for slot, _ in self.seen))
+        runs = [[r for slot, r in self.seen if slot == s] for s in order]
+        self.seen = []
+        return [(len(r), r[5:]) for r in runs]
+
+
+def color_deq(f_thres=24, b_thres=16, anneal=1):
+    """scripts/train_deq_deconv.py::build_deq with the shipped weights."""
+    from flax import serialization
+
+    from dprox_tpu.algo.special import DEQSolver
+    from dprox_tpu.proxfn.pnp.prior import get_denoiser
+
+    den = get_denoiser("distilled_color")
+    x = dp.Variable()
+    data = dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf"), circular=True),
+                          b=dp.Placeholder("y"))
+    solver = dp.compile(data + dp.deep_prior(x, den, param_key="deq_prior"), "admm")
+    deq = DEQSolver(solver, learned_params=True, f_thres=f_thres, b_thres=b_thres, anneal=anneal)
+    params = dict(deq.init_params(), deq_prior=den.params)
+    with open(os.path.join(ROOT, "weights", "deq_deconv.msgpack"), "rb") as f:
+        return deq, serialization.from_bytes(params, f.read())
+
+
+def csmri_tuner():
+    from flax import serialization
+
+    from dprox_tpu.algo.special import AutoTuneSolver
+
+    x = dp.Variable()
+    solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                        + dp.deep_prior(x, "tv", sqrt=True), "admm")
+    tuner = AutoTuneSolver(solver, action_pack=5, max_episode_step=6)
+    with open(os.path.join(ROOT, "weights", "autotune_csmri.msgpack"), "rb") as f:
+        tuner.policy_params = serialization.from_bytes(tuner.policy_params, f.read())
+    return solver, tuner
+
+
+def deconv_tuner():
+    """scripts/train_autotune_multi.py's deconv tuner with the shipped
+    policy; (tuner, the log_descent baseline's solver)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from flax import serialization
+
+    import train_autotune_multi as M
+
+    tuner = M.build_tuner("deconv")
+    with open(os.path.join(ROOT, "weights", "autotune_deconv.msgpack"), "rb") as f:
+        tuner.policy_params = serialization.from_bytes(tuner.policy_params, f.read())
+    x = dp.Variable()
+    solver = dp.compile(dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf", batch=False))
+                                       - dp.Placeholder("b")) + dp.deep_prior(x, "tv"), "admm")
+    return tuner, solver
+
+
+def special():
+    """The special phase's solves (see chip_smoke.py::phase_special): PSNRs
+    and Anderson's evaluations of f with the residuals its stop test read."""
+    from dprox_tpu.algo.special import DEQSolver
+    from dprox_tpu.contrib import csmri
+    from dprox_tpu.proxfn.pnp.prior import get_denoiser
+
+    log = EngineLog()
+    out = {}
+    deq, params = color_deq()
+    for i, (sig, sn) in enumerate(DEQ_DECONV_CELLS):
+        gt, y, psf = deq_observation(sig, sn, 77 + i)
+        p = dict(params, psf=jnp.asarray(psf), y=jnp.asarray(y))
+        got = deq.solve(x0=jnp.asarray(y), rhos=0.05 + 5.0 * sn, lams=0.1 + 2.0 * sn, params=p,
+                        real_output=True)
+        ((n, res),) = log.take()
+        out[f"deq_deconv_{i}"] = {"psnr": metrics.psnr(np.clip(np.asarray(got), 0, 1), gt),
+                                  "forward_evaluations": n, "forward_res": res}
+    # one training step's gradient (cell 0): the backward's evaluations
+    gt, y, psf = deq_observation(*DEQ_DECONV_CELLS[0], 77)
+    data = dict(psf=jnp.asarray(psf), y=jnp.asarray(y))
+    sn = DEQ_DECONV_CELLS[0][1]
+    jax.grad(lambda q: jnp.mean((deq.solve(x0=jnp.asarray(y), rhos=0.05 + 5.0 * sn,
+                                           lams=0.1 + 2.0 * sn, params=dict(q, **data),
+                                           real_output=True) - gt) ** 2))(params)
+    (nf, res_f), (nb, res_b) = log.take()
+    out["deq_deconv_train_step"] = {"forward_evaluations": nf, "forward_res": res_f,
+                                    "backward_evaluations": nb, "backward_res": res_b}
+    # annealed inference, noiseless psf 5: 12 levels x 2 iterations
+    deq12, _ = color_deq(f_thres=2, anneal=12)
+    gt, y, psf = deq_observation(5.0, 0.0, 0)
+    rhos, sigmas = dp.log_descent(80, 5, 12, sigma=0.001, lam=0.23)
+    got = deq12.solve(x0=jnp.asarray(y), rhos=np.asarray(rhos, np.float32),
+                      lams=np.asarray(sigmas, np.float32),
+                      params=dict(params, psf=jnp.asarray(psf), y=jnp.asarray(y)),
+                      real_output=True)
+    log.take()
+    out["deq_deconv_anneal"] = {"psnr": metrics.psnr(np.clip(np.asarray(got), 0, 1), gt)}
+
+    # the trained CS-MRI DEQ on DEQ_GRID's cells
+    from flax import serialization
+
+    den = get_denoiser("distilled_gray")
+    x = dp.Variable()
+    solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                        + dp.deep_prior(x, den, sqrt=True, param_key="deq_prior"), "admm")
+    deq = DEQSolver(solver, learned_params=True, f_thres=24, b_thres=16)
+    params = {"deq_r": np.float32(1.0), "deq_l": np.float32(1.0), "deq_prior": den.params}
+    with open(os.path.join(ROOT, "weights", "deq_csmri.msgpack"), "rb") as f:
+        params = serialization.from_bytes(params, f.read())
+    for lines, sigma in DEQ_CSMRI_CELLS:
+        s = csmri.generate_sample(size=128, num_lines=lines, sigma=sigma)
+        got = deq.solve(x0=np.real(s["x0"]).astype(np.float32), rhos=0.3, lams=0.05,
+                        params=dict(params, **s["params"]), real_output=True)
+        ((n, res),) = log.take()
+        out[f"deq_csmri_{lines}_{sigma}"] = {"psnr": metrics.psnr(np.asarray(got), s["gt"]),
+                                             "forward_evaluations": n, "forward_res": res}
+
+    # the nonneg DEQ of tests/test_specialization.py at 128^2: a gradient step
+    gt, y, _ = deq_observation(2.0, 0.01, 0, k=5)
+    x = dp.Variable()
+    psf = imaging.point_spread_function(5, 2)
+    nn_deq = DEQSolver(dp.compile([dp.sum_squares(dp.conv(x, psf) - jnp.asarray(y)),
+                                   dp.nonneg(x)], "admm"), learned_params=True, f_thres=15,
+                       b_thres=15)
+    jax.grad(lambda q: jnp.mean((nn_deq.solve(x0=jnp.asarray(y), rhos=0.1, lams=0.05, params=q)
+                                 - gt) ** 2))(nn_deq.init_params())
+    (nf, res_f), (nb, res_b) = log.take()
+    out["deq_nonneg_train_step"] = {"forward_evaluations": nf, "forward_res": res_f,
+                                    "backward_evaluations": nb, "backward_res": res_b}
+
+    # the shipped tuners: CS-MRI, and deconv on the face
+    solver, tuner = csmri_tuner()
+    s = csmri.generate_sample(size=128, num_lines=40, sigma=0.05)
+    rhos, sigmas = dp.log_descent(30, 5, 30, sigma=0.01)
+    base = solver.solve(x0=s["x0"], rhos=rhos, lams=sigmas, max_iter=30, params=s["params"],
+                        real_output=True)
+    tuned = tuner.solve(np.real(s["x0"]).astype(np.float32), solve_params=s["params"])
+    out["autotune_csmri"] = {"tuned": metrics.psnr(np.real(np.asarray(tuned)), s["gt"]),
+                             "log_descent": metrics.psnr(np.asarray(base), s["gt"])}
+    tuner, solver = deconv_tuner()
+    gt, b, psf = deq_observation(2.5, 0.0, 0)
+    rhos, sigmas = dp.log_descent(35, 10, 30)
+    base = solver.solve(x0=b, rhos=rhos, lams=sigmas, max_iter=30,
+                        params={"b": b, "psf": psf})
+    tuned = tuner.solve(b, aux_state=np.asarray([[0.0, 0.25]], np.float32),
+                        solve_params={"b": b, "psf": psf})
+    out["autotune_deconv"] = {
+        "tuned": metrics.psnr(np.clip(np.real(np.asarray(tuned)), 0, 1), gt),
+        "log_descent": metrics.psnr(np.clip(np.asarray(base), 0, 1), gt)}
+    return out
+
+
+def cross_task_goldens():
+    """Per-sample PSNRs of tests/test_specialization.py::
+    test_autotune_shipped_policy_cross_task (4 held-out samples of
+    scripts/train_autotune_multi.py::make_samples(task, 4, seed0=9000)):
+    the shipped policy's, and the baseline that test compares with."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from flax import serialization
+
+    import train_autotune_multi as M
+
+    out = {}
+    for task in ("deconv", "demosaic"):
+        tuner = M.build_tuner(task)
+        with open(os.path.join(ROOT, "weights", f"autotune_{task}.msgpack"), "rb") as f:
+            tuner.policy_params = serialization.from_bytes(tuner.policy_params, f.read())
+        rows = []
+        for sample in M.make_samples(task, 4, seed0=9000):
+            if task == "demosaic":
+                base = M.baseline_psnr(task, sample)
+            else:
+                solver = deconv_tuner()[1]
+                rhos, sigmas = dp.log_descent(35, 10, M.EPISODE_ITERS)
+                got = solver.solve(x0=sample["x0"], rhos=rhos, lams=sigmas,
+                                   max_iter=M.EPISODE_ITERS, params=sample["params"])
+                base = metrics.psnr(np.clip(np.asarray(got), 0, 1), sample["gt"])
+            rows.append([M.tuned_psnr(tuner, sample), base])
+        out[task] = rows
+    return out
+
+
 def solve(fns_of, method, b, **kw):
     x = dp.Variable()
     return np.asarray(dp.compile(fns_of(x), method).solve(x0=jnp.asarray(b), **kw))
 
 
 def main():
+    if sys.argv[1:] == ["special"]:
+        print(json.dumps({"special": special(), "cross_task": cross_task_goldens()}, indent=1))
+        return
     out = {"family": {}, "algos": {}}
     img, psf, b = observation(False)
     data = lambda x: dp.sum_squares(dp.conv(x, psf) - jnp.asarray(b))  # noqa: E731
@@ -191,6 +437,8 @@ def main():
     out["psnr_b"] = metrics.psnr(b, img)
     out["psnr_b_gray"] = metrics.psnr(gb, gimg)
     out["fast"] = fast()
+    out["special"] = special()
+    out["cross_task"] = cross_task_goldens()
     print(json.dumps(out, indent=1))
 
 

@@ -280,6 +280,21 @@ def test_get_rho_sigma_admm_exact():
 
 
 def test_specialize_train_visualize_name_their_items():
-    for fn, item in ((dp.specialize, "item 5"), (dp.train, "item 5"), (dp.visualize, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(None)
+    """specialize and train came with Queue 1 item 5 (held against the JAX
+    package in tests/test_torch_special.py): each name dispatches as the
+    JAX package's does. visualize still names item 9."""
+    with pytest.raises(NotImplementedError, match="item 9"):
+        dp.visualize(None)
+    x = dp.Variable()
+    b = np.ones((1, 3, 8, 8), np.float32)
+    solver = dp.compile([dp.sum_squares(dp.conv(x, np.ones((3, 3, 1), np.float32) / 9) - b),
+                         dp.nonneg(x)], "admm", device="cpu")
+    for method, kind in (("deq", dp.DEQSolver), ("rl", dp.AutoTuneSolver)):
+        assert isinstance(dp.specialize(solver, method), kind)
+    assert isinstance(dp.specialize(solver, "unroll", share=False), dp.UnrolledSolver)
+    with pytest.raises(KeyError):
+        dp.specialize(solver, "item 5")
+    params = dp.train(step_fn=lambda p, batch, generator: ((p["a"] - 1.0) ** 2).sum(),
+                      dataset=[None], init_params={"a": torch.zeros(2)}, epochs=1, lr=0.1,
+                      log_every=0)
+    assert bool(torch.all(params["a"] > 0))

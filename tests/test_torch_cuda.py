@@ -1046,3 +1046,103 @@ def test_sisr_solve_on_cuda_matches_cpu(cuda):
             assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0) | {
                 "tv_denoise_chw": 6}
     assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# The specializations on the card
+# --------------------------------------------------------------------------- #
+
+def _nonneg_deq(device, size=32):
+    img = imaging._synthetic_face(512, 512)[224:224 + size, 224:224 + size]
+    img = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)[None], np.float32))
+    psf = imaging.point_spread_function(5, 2)
+    b = imaging.blurring(img, psf)
+    x = dp.Variable()
+    solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b.to(device)), dp.nonneg(x)], "admm",
+                        device=device)
+    deq = dp.specialize(solver, "deq", learned_params=True, f_thres=15, b_thres=15)
+    return img.to(device), b.to(device), deq
+
+
+def test_deq_learned_params_gradient_on_cuda_matches_cpu(cuda):
+    """The ROADMAP gate tests/test_specialization.py:68-84 on the card: the
+    DEQ on the nonneg deconvolution with learned (deq_r, deq_l) gives a
+    finite, non-zero gradient through the implicit backward; the forward
+    launches fused_admm_update and freq_divide once an evaluation of f and
+    the backward once more. Output (1e-4) and d loss / d deq_r (1e-3
+    relative) against the CPU, the same stopping step."""
+    res = {}
+    for device in ("cpu", "cuda"):
+        img, b, deq = _nonneg_deq(device)
+        params = {k: v.requires_grad_() for k, v in deq.init_params().items()}
+        assert params["deq_r"].device.type == device
+        kernels.reset_launches()
+        stats = []
+        out = deq.solve(x0=b, rhos=0.1, lams=0.05, params=params, stats=stats)
+        (g,) = torch.autograd.grad(torch.mean((out - img) ** 2), [params["deq_r"]])
+        res[device] = out.detach().cpu(), float(g), stats[0], kernels.launch_counts()
+    (out, g, stats, counts), (out_cpu, g_cpu, stats_cpu, _) = res["cuda"], res["cpu"]
+    assert np.isfinite(g) and g != 0
+    assert abs(g - g_cpu) <= 1e-3 * abs(g_cpu)
+    assert float((out - out_cpu).abs().max()) <= 1e-4
+    assert stats["forward"]["evaluations"] == stats_cpu["forward"]["evaluations"]
+    n = stats["forward"]["evaluations"] + 1
+    assert counts == dict.fromkeys(counts, 0) | {"freq_divide": n, "fused_admm_update": n}
+
+
+def test_deq_function_on_cuda_matches_cpu(cuda):
+    """deq_fixed_point on a contraction built from a kernel (the divide):
+    the fixed point and the gradient of theta through the implicit
+    backward, card against CPU."""
+    from dprox_tpu_torch.algo.special import deq_fixed_point
+
+    rng = np.random.RandomState(7)
+    F = (rng.randn(1, 3, 16, 16) + 1j * rng.randn(1, 3, 16, 16)).astype(np.complex64)
+    diag = rng.rand(1, 1, 16, 16).astype(np.float32) + 1.0
+    got = {}
+    for device in ("cpu", "cuda"):
+        Ft, dt = torch.from_numpy(F).to(device), torch.from_numpy(diag).to(device)
+        rho = torch.tensor(0.5, device=device, requires_grad=True)
+
+        def f(theta, z):  # a contraction: |0.5 / (diag + rho)| < 1
+            r = theta
+            return kernels.freq_divide(Ft, dt, r).real * 0.1 + 0.5 * z / (1.0 + r)
+
+        z = deq_fixed_point(f, rho, torch.zeros(1, 3, 16, 16, device=device), 30, 30)
+        (g,) = torch.autograd.grad(z.sum(), [rho])
+        got[device] = z.detach().cpu(), float(g)
+    assert float((got["cuda"][0] - got["cpu"][0]).abs().max()) <= 1e-5
+    assert abs(got["cuda"][1] - got["cpu"][1]) <= 1e-4 * abs(got["cpu"][1])
+
+
+def test_policy_and_tuner_on_cuda_match_cpu(cuda):
+    """The shipped CS-MRI policy on the card: the policy and critic live on
+    the solver's device; its actions on a random observation (cuDNN against
+    the CPU's convolutions, 1e-4) and a 2-step episode of 5-iteration packs
+    (TV once an iteration) against the CPU."""
+    import os
+
+    from dprox_tpu_torch.contrib import csmri
+
+    path = os.path.join(os.path.dirname(__file__), "..", "weights", "autotune_csmri.msgpack")
+    s = csmri.generate_sample(size=64, num_lines=30, sigma=0.05)
+    ob = torch.from_numpy(np.random.RandomState(8).rand(2, 5, 64, 64).astype(np.float32))
+    x0 = np.real(s["x0"]).astype(np.float32)
+    got = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        solver = dp.compile(dp.csmri(x, dp.Placeholder("mask", batch=False), dp.Placeholder("y"))
+                            + dp.deep_prior(x, "tv", sqrt=True), "admm", device=device)
+        tuner = dp.specialize(solver, "rl", action_pack=5, max_episode_step=2)
+        tuner.load(path)
+        assert all(p.device.type == device for p in tuner.policy.parameters())
+        action = tuner.policy(ob.to(device))
+        kernels.reset_launches()
+        out = tuner.solve(x0, solve_params=s["params"])
+        got[device] = {k: v.detach().cpu() for k, v in action.items()}, out.cpu()
+        if device == "cuda":
+            assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0) | {
+                "tv_denoise_chw": 10}
+    for k in got["cpu"][0]:
+        assert float((got["cuda"][0][k] - got["cpu"][0][k]).abs().max()) <= 1e-4
+    assert float((got["cuda"][1] - got["cpu"][1]).abs().max()) <= 1e-4
