@@ -98,6 +98,21 @@ exits non-zero):
               one f evaluation and one Anderson step, a training step and
               a tuner episode.
 
+13. zoo     - the rest of the denoiser zoo: tiny_drunet_color_tv (DRUNet
+              nc 32..256 nb 2, four 272x272 quadrants a call at 512x512)
+              on the flagship deconvolution and ensemble_tv (FFDNet +
+              DRUNet + TV) with x8, each PSNR against the JAX package on the
+              CPU, launch counts, marginal iterations/s, one iteration's
+              eager and device time, one DRUNet call beside one FFDNet call;
+              the HSI grid of tests/paper/test_hsi_grid.py (tiny_grunet,
+              tiny_grunet_tv) and mid_grunet against tiny_grunet; the trained
+              derain pipeline (DGUNet unrolled_prior + LearnableDegOp, 7 PGD
+              iterations) on the DERAIN_GOLDEN crops, and a joint training
+              step's gradients against the CPU; one call each of IRCNN (a
+              CUDA graph captures it: no host read), UNet, QRNN3D, FFDNet3D,
+              OpticsUNet and patch_nlm against the CPU, with their times and
+              device kernels per call.
+
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls; phase
 check_complex holds freq_divide's complex-divisor entry against its plain
@@ -109,6 +124,7 @@ run with TF32 off.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -326,6 +342,34 @@ BDOT_LP_ROWS = [(1, 8208), (1, 32784), (1, 520), (8, 520)]  # the LP paths' bdot
 MAIN_ITERS = 48
 NONNEG_CAP = 512
 JOINT_ITERS = 24
+
+# The zoo phase: values of the JAX package on the CPU, printed under "zoo" by
+#   JAX_PLATFORMS=cpu python scripts/smoke_references.py zoo
+# on the inputs this phase makes: the flagship observation (observation(512,
+# psf(15, 5))) with deep_prior(x, "tiny_drunet_color_tv") (48 iterations,
+# log_descent(80, 30, 48)) and ensemble_tv with x8 (24 iterations,
+# log_descent(80, 25, 24)); the HSI grid of tests/paper/test_hsi_grid.py on
+# synthetic_hsi (hsi_problem; mPSNR, its goldens HSI_GRID_GOLDEN are held to
+# 0.2 dB there); tiny_grunet and mid_grunet denoising the cube plus 0.03 noise
+# (mPSNR); the trained derain pipeline (weights/derain_joint.msgpack, 7
+# unrolled PGD iterations) on the DERAIN_GOLDEN crops, whose ground truth and
+# JAX-made rainy inputs the script writes to tests/data/derain_golden_crops.npz.
+JAX_CPU_ZOO = {"tiny_drunet_color_tv": 28.136038566336104, "ensemble_tv_x8": 28.379683282471685,
+               "hsi_deblur": 29.50638059713327, "hsi_sisr": 29.32161004891281,
+               "hsi_misr": 34.57077746098304, "hsi_cs": 30.352899377916117,
+               "denoise_tiny_grunet": 32.15857941964991, "denoise_mid_grunet": 32.49361470557747,
+               "derain_0": 31.006056314160276, "derain_4": 33.957510850004724}
+HSI_GRID = [("deblur", "tiny_grunet"), ("sisr", "tiny_grunet"), ("misr", "tiny_grunet_tv"),
+            ("cs", "tiny_grunet")]  # tests/paper/test_hsi_grid.py::HSI_GRID
+HSI_GRID_GOLDEN = {"deblur": 29.51, "sisr": 29.32, "misr": 34.57, "cs": 30.35}
+DERAIN_GOLDEN = {0: 31.01, 4: 33.96}  # tests/test_training.py::DERAIN_GOLDEN (0.15 dB there)
+DERAIN_CROPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "derain_golden_crops.npz")
+# a derain training step's gradients (deg_op, dgu, rhos) on the card against
+# the CPU: max |card - CPU| / max |CPU| of each group, on a step from the
+# shipped weights (the CPU's own gradients move <= 8e-5 there when the
+# rainy input moves by 1e-6)
+DERAIN_GRAD_REL_TOL = 1e-3
 
 
 def emit(obj):
@@ -2609,6 +2653,376 @@ def phase_special(dp, kernels, dev, card):
     return by_path
 
 
+def blur64(img, psf):
+    """``img`` (numpy) blurred circularly by ``psf`` in float64, rounded to
+    float32 (scripts/smoke_references.py::blur64)."""
+    from dprox_tpu_torch.utils.fft import psf2otf
+
+    otf = psf2otf(np.asarray(psf).squeeze(), img.shape[-2:])
+    return np.real(np.fft.ifft2(otf * np.fft.fft2(np.asarray(img, np.float64)))).astype(np.float32)
+
+
+def hsi_problem(dp, name, prior, gt, srf, dev):
+    """(solver, x0) of tests/paper/test_hsi_grid.py::_task (noise 0.05) on the
+    cube ``gt``, the deblur observation blurred in float64 with numpy
+    (scripts/smoke_references.py::hsi_task); solve 24 iterations with
+    hsi_schedule()."""
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+
+    B = gt.shape[1]
+    x = dp.Variable()
+    if name == "deblur":
+        psf9 = point_spread_function(9, 2)
+        b = _noisy(blur64(gt, psf9))
+        data, x0 = dp.sum_squares(dp.conv(x, psf9) - torch.from_numpy(b)), b
+    elif name == "sisr":
+        psf7 = point_spread_function(7, 2)
+        hy, hx0 = sr_observation(gt, psf7, 2)
+        data = dp.sisr(x, dp.utils.array(_noisy(hy)),
+                       dp.utils.array(np.transpose(psf7, (2, 0, 1))[None]), 2)
+        x0 = _noisy(hx0)
+    elif name == "misr":
+        hb = _noisy(np.einsum("ck,nkp->ncp", srf.T, gt.reshape(1, B, -1)).reshape(1, 3, 64, 64))
+        data, x0 = dp.misr(x, dp.utils.array(hb), srf), np.repeat(hb.mean(1, keepdims=True), B, 1)
+    else:
+        mask = (np.random.RandomState(0).rand(1, B, 64, 64) > 0.5).astype(np.float32)
+        hy = _noisy(np.sum(gt * mask, axis=1, keepdims=True))
+        data = dp.compress_sensing(x, dp.utils.array(mask), dp.utils.array(hy))
+        x0 = np.repeat(hy / (B // 2), B, axis=1)
+    solver = dp.compile([data, dp.deep_prior(x, prior, sqrt=True)], "admm", device=dev)
+    return solver, torch.from_numpy(np.ascontiguousarray(x0, np.float32)).to(dev)
+
+
+def hsi_schedule(dp):
+    return dp.log_descent(35 + 300 * 0.05, 10 + 200 * 0.05, 24, sigma=0.05)
+
+
+def derain_pipeline(dp, dev, max_iter=7, n_feat=16, scale=8):
+    """scripts/train_derain.py::build in the port: unrolled PGD over
+    sum_squares(LearnableDegOp(x), rainy) + unrolled_prior(DGUNet);
+    returns (solver, the degradation operator, the prior)."""
+    from dprox_tpu_torch.contrib.derain import LearnableDegOp
+    from dprox_tpu_torch.models.dgu import DGUDenoiser
+
+    deg = LearnableDegOp(max_step=max_iter - 2)
+    x = dp.Variable()
+    data = dp.sum_squares(deg.as_linop(x), b=dp.Placeholder("rainy"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)  # the same initial weights in every run
+        net = DGUDenoiser(n_feat=n_feat, scale_unetfeats=scale, scale_orsnetfeats=scale)
+    prior = dp.unrolled_prior(x, net, max_step=max_iter, param_key="dgu")
+    return dp.compile([data, prior], method="pgd", device=dev), deg, prior
+
+
+def derain_weights(prior, dev):
+    """weights/derain_joint.msgpack as the port's params, on ``dev``."""
+    from dprox_tpu_torch.algo.base import params_to
+    from dprox_tpu_torch.utils.checkpoint import (deg_op_state_dict_from_flax,
+                                                  dgu_state_dict_from_flax, load_flax_msgpack)
+
+    tree = load_flax_msgpack(os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights",
+                                          "derain_joint.msgpack"))
+    return params_to({"deg_op": deg_op_state_dict_from_flax(tree["deg_op"]),
+                      "dgu": dgu_state_dict_from_flax(tree["dgu"], prior.params.keys()),
+                      "rhos": torch.from_numpy(np.asarray(tree["rhos"], np.float32)),
+                      "lams": torch.from_numpy(np.asarray(tree["lams"], np.float32))}, dev)
+
+
+def derain_crops():
+    """{crop index: (ground truth, rainy)} as float32 [1, 3, 64, 64] numpy."""
+    with np.load(DERAIN_CROPS) as f:
+        return {int(i): (g[None].astype(np.float32) / 255.0, r[None])
+                for i, g, r in zip(f["crop_idx"], f["gt"], f["rainy"])}
+
+
+def derain_solve(solver, p, rainy):
+    """scripts/train_derain.py::solve: 7 iterations at the trained schedules."""
+    return solver.solve(x0=rainy, max_iter=p["rhos"].shape[0], rhos=p["rhos"], lams=p["lams"],
+                        params={"rainy": rainy, "deg_op": p["deg_op"], "dgu": p["dgu"]})
+
+
+def derain_train_grads(dp, dev, params, img, rainy, max_iter=3, n_feat=8, scale=4):
+    """A joint training step of the derain pipeline (by default the setup of
+    tests/test_training.py:71-111: 3 unrolled PGD iterations, DGUNet n_feat
+    8): loss and its gradients on deg_op, dgu and rhos, for ``params``
+    ({deg_op, dgu, rhos, lams}, as numpy or tensors)."""
+    from dprox_tpu_torch.algo.base import params_to
+
+    solver, _, _ = derain_pipeline(dp, dev, max_iter=max_iter, n_feat=n_feat, scale=scale)
+    p = params_to(params, dev)
+    leaf = lambda v: v.detach().clone().requires_grad_(True)  # noqa: E731
+    p = {"deg_op": {n: {k: leaf(v) for k, v in sd.items()} for n, sd in p["deg_op"].items()},
+         "dgu": {k: leaf(v) for k, v in p["dgu"].items()}, "rhos": leaf(p["rhos"]),
+         "lams": p["lams"]}
+    leaves = {("deg_op", n, k): v for n, sd in p["deg_op"].items() for k, v in sd.items()}
+    leaves.update({("dgu", k): v for k, v in p["dgu"].items()})
+    leaves[("rhos",)] = p["rhos"]
+    img, rainy = (torch.as_tensor(a).to(dev) for a in (img, rainy))
+    out = solver.solve(x0=rainy, max_iter=max_iter, rhos=p["rhos"], lams=p["lams"],
+                       params={"rainy": rainy, "deg_op": p["deg_op"], "dgu": p["dgu"]})
+    loss = torch.mean((out - img) ** 2)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _grad_group_rel(got, ref):
+    """max |got - ref| / max |ref| over each group (deg_op, dgu, rhos) of
+    derain_train_grads' gradients."""
+    rel = {}
+    for group in ("deg_op", "dgu", "rhos"):
+        keys = [k for k in ref if k[0] == group]
+        r = torch.cat([ref[k].reshape(-1).cpu() for k in keys]).double()
+        g = torch.cat([got[k].reshape(-1).cpu() for k in keys]).double()
+        rel[group] = float((g - r).abs().max() / r.abs().max())
+    return rel
+
+
+def _device_kernels(fn, calls=3):
+    """Device kernels per call of ``fn`` in a torch.profiler trace of
+    ``calls`` calls (None if the trace holds no device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n / calls if n else None
+
+
+def phase_zoo(dp, kernels, dev, card):
+    """The rest of the denoiser zoo on the card: DRUNet and ensemble_tv on
+    the flagship deconvolution, the HSI grid, the derain pipeline and its
+    training step, and one call of each other zoo model against the CPU."""
+    from dprox_tpu_torch.models import OpticsUNet
+    from dprox_tpu_torch.proxfn.nlm import nlm_denoise
+    from dprox_tpu_torch.proxfn.pnp import FFDNet3DDenoiser, IRCNNDenoiser, UNetDenoiser
+    from dprox_tpu_torch.proxfn.pnp.grunet import QRNN3DDenoiser
+    from dprox_tpu_torch.proxfn.pnp.prior import get_denoiser
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+    from dprox_tpu_torch.utils.metrics import mpsnr, psnr
+
+    records, by_path, failed = {}, {}, []
+    psf = point_spread_function(15, 5)
+    img, b = observation(512, psf, False, dev)
+    r48, s48 = dp.log_descent(80, 30, MAIN_ITERS)
+    r24, s24 = dp.log_descent(80, 25, 24)
+    # (name, prior, x8, iterations, schedules, marginal span, its estimates, TV per iteration)
+    cases = [("tiny_drunet_color_tv", "tiny_drunet_color_tv", False, MAIN_ITERS, (r48, s48),
+              (8, MAIN_ITERS), (3, 3), 1),
+             ("ensemble_tv_x8", "ensemble_tv", True, 24, (r24, s24), (4, 24), (1, 2), 8)]
+    for name, prior, x8, n, (rhos, sigmas), (lo, hi), (reps, est), tv_per_it in cases:
+        x = dp.Variable()
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - b),
+                             dp.deep_prior(x, prior, x8=x8)], "admm", device=dev)
+        rec = _gated_solve(kernels, solver, img, b, n, rhos, sigmas, JAX_CPU_ZOO[name],
+                           PSNR_TOL_DB, {"tv_denoise_chw": tv_per_it * n, "freq_divide": n})
+        by_path[f"zoo_{name}"] = rec["launches"]
+        obs = _marginal(lambda k: solver.solve(x0=b, max_iter=k, rhos=rhos[:k], lams=sigmas[:k]),
+                        lo, hi, reps=reps, estimates=est)
+        rec.update(its_per_sec=statistics.median(obs), obs=obs, span=f"{lo}-{hi}",
+                   statistic=f"median of {est} best-of-{reps}",
+                   **_iteration_ms(solver, b, rhos[0], sigmas[0]))
+        records[name] = rec
+        del solver
+    # one DRUNet call at 512x512 (four 272x272 quadrants) beside one FFDNet call
+    sigma = s48[0].to(dev).reshape(-1)
+    drunet = get_denoiser("tiny_drunet_color").to(dev)
+    ffdnet = get_denoiser("distilled_color").to(dev)
+    with torch.no_grad():
+        records["denoiser_call_ms"] = {
+            "tiny_drunet_color": time_ms(lambda: drunet.denoise(b, sigma), 10, 3),
+            "tiny_drunet_color_eager": time_ms(lambda: drunet.denoise(b, sigma), 10, 3,
+                                               graph=False),
+            "distilled_color_ffdnet": time_ms(lambda: ffdnet.denoise(b, sigma), 10, 3),
+            "distilled_color_ffdnet_eager": time_ms(lambda: ffdnet.denoise(b, sigma), 10, 3,
+                                                    graph=False)}
+        # the quadrants one after another (as the JAX package runs them)
+        # against one batch-4 call of the same network
+        quads = torch.rand(4, 4, 272, 272, device=dev)
+        records["denoiser_call_ms"].update(
+            unetres_one_272=time_ms(lambda: drunet.module(quads[:1]), 10, 3),
+            unetres_batch4_272=time_ms(lambda: drunet.module(quads), 10, 3))
+    del drunet, ffdnet
+
+    # the HSI grid: one divide an iteration in deblur, no kernel in the others
+    gt, srf = synthetic_hsi()
+    hwc = lambda a: np.transpose(np.asarray(a)[0], (1, 2, 0))  # noqa: E731
+    rhos, sigmas = hsi_schedule(dp)
+    for task, prior in HSI_GRID:
+        solver, x0 = hsi_problem(dp, task, prior, gt, srf, dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = solver.solve(x0=x0, rhos=rhos, lams=sigmas, max_iter=24)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, ref = mpsnr(hwc(out.real.cpu()), hwc(gt)), JAX_CPU_ZOO[f"hsi_{task}"]
+        launches = kernels.launch_counts()
+        rec = {"prior": prior, "iterations": 24, "solve_s": seconds, "launches": launches,
+               "mpsnr_x": got, "jax_cpu_mpsnr_x": ref, "mpsnr_gap_db": got - ref,
+               "golden_db": HSI_GRID_GOLDEN[task],
+               "solve_ms_best_of_3": _best_ms(lambda: solver.solve(
+                   x0=x0, rhos=rhos, lams=sigmas, max_iter=24), 3)}
+        records[f"hsi_{task}"] = rec
+        by_path[f"zoo_hsi_{task}"] = launches
+        want = dict.fromkeys(launches, 0) | ({"freq_divide": 24} if task == "deblur" else {})
+        if not (abs(got - ref) <= PSNR_TOL_DB and launches == want):
+            failed.append(f"HSI {task}: {rec}")
+        del solver
+    noisy_cube = torch.from_numpy(
+        gt + 0.03 * np.random.RandomState(3).randn(*gt.shape).astype(np.float32)).to(dev)
+    dn = {}
+    for kind in ("tiny_grunet", "mid_grunet"):
+        den = get_denoiser(kind).to(dev)
+        with torch.no_grad():
+            dn[kind] = mpsnr(hwc(den.denoise(noisy_cube, torch.tensor([0.03], device=dev)).cpu()),
+                             hwc(gt))
+            dn[f"{kind}_call_ms"] = time_ms(lambda: den.denoise(
+                noisy_cube, torch.tensor([0.03], device=dev)), 10, 3, graph=False)
+        if abs(dn[kind] - JAX_CPU_ZOO[f"denoise_{kind}"]) > PSNR_TOL_DB:
+            failed.append(f"{kind} denoise mPSNR {dn[kind]} vs JAX-CPU "
+                          f"{JAX_CPU_ZOO[f'denoise_{kind}']}")
+    records["hsi_denoise_noisy_cube"] = dn
+    if not dn["mid_grunet"] > dn["tiny_grunet"]:
+        failed.append(f"mid_grunet not above tiny_grunet: {dn}")
+
+    # the trained derain pipeline on the golden crops, and a training step
+    solver, _, prior = derain_pipeline(dp, dev)
+    p = derain_weights(prior, dev)
+    der = {}
+    for i, (g, r) in derain_crops().items():
+        rainy = torch.from_numpy(r).to(dev)
+        kernels.reset_launches()
+        with torch.no_grad():
+            out = derain_solve(solver, p, rainy)
+            ms = _best_ms(lambda: derain_solve(solver, p, rainy), 5)
+        got = psnr(torch.clamp(out, 0, 1).cpu(), torch.from_numpy(g))
+        der[i] = {"psnr_x": got, "jax_cpu_psnr_x": JAX_CPU_ZOO[f"derain_{i}"],
+                  "psnr_gap_db": got - JAX_CPU_ZOO[f"derain_{i}"], "golden_db": DERAIN_GOLDEN[i],
+                  "psnr_rainy": psnr(torch.from_numpy(r), torch.from_numpy(g)),
+                  "solve_ms": ms, "launches": kernels.launch_counts()}
+        by_path[f"zoo_derain_{i}"] = der[i]["launches"]
+        if abs(der[i]["psnr_gap_db"]) > PSNR_TOL_DB or any(der[i]["launches"].values()):
+            failed.append(f"derain crop {i}: {der[i]}")
+    records["derain"] = der
+    # a joint training step, card against CPU: gated on a step from the
+    # shipped weights on crop 0 (the model a user fine-tunes); the random
+    # small setup of tests/test_training.py:71-111 is reported beside the
+    # CPU's own spread when its params move by one float32 unit (its
+    # MergeBlock's 16x16 Gram matrix has a condition number ~1e4 there, so
+    # its gradients move ~1e-3 under rounding alone)
+    g0, r0 = derain_crops()[0]
+    big = dict(max_iter=7, n_feat=16, scale=8)
+    trained = derain_weights(prior, "cpu")
+    loss_c, g_card = derain_train_grads(dp, dev, trained, g0, r0, **big)
+    loss_h, g_cpu = derain_train_grads(dp, "cpu", trained, g0, r0, **big)
+    rel = _grad_group_rel(g_card, g_cpu)
+    rng = np.random.RandomState(21)
+    _, deg, small = derain_pipeline(dp, "cpu", max_iter=3, n_feat=8, scale=4)
+    noise = lambda v: v + 0.01 * torch.from_numpy(rng.randn(*v.shape).astype(np.float32))  # noqa: E731
+    tp = {"deg_op": {n: {k: noise(v) for k, v in sd.items()} for n, sd in deg.params.items()},
+          "dgu": {k: noise(v) for k, v in small.params.items()},
+          "rhos": torch.full((3,), 0.5), "lams": torch.full((3,), 0.1)}
+    ulp = lambda v: v * (1 + 2.0 ** -24 * torch.from_numpy(  # noqa: E731
+        rng.choice([-1.0, 1.0], v.shape).astype(np.float32)))
+    tp_ulp = {"deg_op": {n: {k: ulp(v) for k, v in sd.items()} for n, sd in tp["deg_op"].items()},
+              "dgu": {k: ulp(v) for k, v in tp["dgu"].items()}, "rhos": tp["rhos"],
+              "lams": tp["lams"]}
+    face = _synthetic_face32()
+    rainy = np.clip(face + 0.1, 0, 1)
+    small_card = derain_train_grads(dp, dev, tp, face, rainy)[1]
+    small_cpu = derain_train_grads(dp, "cpu", tp, face, rainy)[1]
+    small_ulp = derain_train_grads(dp, "cpu", tp_ulp, face, rainy)[1]
+    records["derain_train_step"] = {
+        "trained_crop0": {"loss_card": float(loss_c), "loss_cpu": float(loss_h),
+                          "grad_rel_err": rel, "limit": DERAIN_GRAD_REL_TOL,
+                          "step_ms": _best_ms(lambda: derain_train_grads(
+                              dp, dev, trained, g0, r0, **big), 3)},
+        "random_small": {"grad_rel_err": _grad_group_rel(small_card, small_cpu),
+                         "cpu_one_unit_spread": _grad_group_rel(small_ulp, small_cpu),
+                         "step_ms": _best_ms(lambda: derain_train_grads(
+                             dp, dev, tp, face, rainy), 3)}}
+    if not all(v <= DERAIN_GRAD_REL_TOL for v in rel.values()):
+        failed.append(f"derain training gradients card vs CPU: {rel}")
+
+    # one call each of the other zoo models, on the card against the CPU
+    rng = np.random.RandomState(22)
+    gray = rng.rand(1, 2, 64, 64).astype(np.float32)
+    cube = rng.rand(1, 8, 32, 32).astype(np.float32)
+    rgb = rng.rand(1, 3, 64, 64).astype(np.float32)
+    calls = {"ircnn": (IRCNNDenoiser(1), gray), "unet": (UNetDenoiser(), gray),
+             "qrnn3d": (QRNN3DDenoiser(), cube), "ffdnet3d": (FFDNet3DDenoiser(in_nc=9, out_nc=8),
+                                                             cube),
+             "optics_unet": (OpticsUNet(), rgb), "patch_nlm": (None, rgb)}
+    models = {}
+    sig_c, sig_d = torch.tensor([0.05]), torch.tensor([0.05], device=dev)
+    for name, (model, arr) in calls.items():
+        xc, xd = torch.from_numpy(arr), torch.from_numpy(arr).to(dev)
+        if name == "patch_nlm":
+            fc, fd = (lambda: nlm_denoise(xc, sig_c)), (lambda: nlm_denoise(xd, sig_d))
+        elif name == "optics_unet":
+            model.eval().requires_grad_(False)
+            fc = lambda m=model: m(xc)  # noqa: E731
+            mod = copy.deepcopy(model).to(dev)
+            fd = lambda m=mod: m(xd)  # noqa: E731
+        else:
+            fc = lambda m=model: m.denoise(xc, sig_c)  # noqa: E731
+            mod = copy.deepcopy(model).to(dev)
+            fd = lambda m=mod: m.denoise(xd, sig_d)  # noqa: E731
+        with torch.no_grad():
+            ref, got = fc(), fd()
+            err = float((got.cpu() - ref).abs().max() / max(1.0, float(ref.abs().max())))
+            models[name] = {"shape": list(arr.shape), "max_rel_err": err,
+                            "eager_ms": time_ms(fd, 5, 2, graph=False),
+                            "device_kernels_per_call": _device_kernels(fd, 2)}
+        if not err <= 1e-4:
+            failed.append(f"{name}: card against CPU {err}")
+    # IRCNN picks its weight set on the device: a CUDA graph captures a call
+    ircnn = copy.deepcopy(calls["ircnn"][0]).to(dev)
+    xg, sg = torch.from_numpy(gray).to(dev), torch.tensor([0.05], device=dev)
+    with torch.no_grad():
+        ref = ircnn.denoise(xg, sg)
+        try:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                graphed = ircnn.denoise(xg, sg)
+            g.replay()
+            torch.cuda.synchronize()
+            models["ircnn"]["cuda_graph_capture"] = bool(torch.equal(graphed, ref))
+        except RuntimeError as e:
+            models["ircnn"]["cuda_graph_capture"] = f"failed: {e}"
+    if models["ircnn"]["cuda_graph_capture"] is not True:
+        failed.append(f"IRCNN CUDA-graph capture: {models['ircnn']['cuda_graph_capture']}")
+    nlm_big = torch.from_numpy(np.random.RandomState(23).rand(1, 3, 512, 512).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        models["patch_nlm_512"] = {
+            "shape": [1, 3, 512, 512],
+            "eager_ms": time_ms(lambda: nlm_denoise(nlm_big, sig_d), 3, 1, graph=False),
+            "device_ms": time_ms(lambda: nlm_denoise(nlm_big, sig_d), 3, 1),
+            "device_kernels_per_call": _device_kernels(lambda: nlm_denoise(nlm_big, sig_d), 1)}
+    records["models"] = models
+    emit({"phase": "zoo", "config": "tiny_drunet_color_tv (48 it.) and ensemble_tv x8 (24 it.) "
+          "on the 1x3x512x512 flagship deconvolution; HSI grid 1x8x64x64 (24 it.); derain "
+          "1x3x64x64 (7 it.); the other models at small sizes", "psnr_tolerance_db": PSNR_TOL_DB,
+          "records": records, "card": card})
+    if failed:
+        raise AssertionError("zoo: " + "; ".join(failed))
+    return by_path
+
+
+def _synthetic_face32():
+    """The synthetic face's 32x32 crop, [1, 3, 32, 32] float32 numpy."""
+    from dprox_tpu_torch.utils.imaging import _synthetic_face
+
+    return np.ascontiguousarray(_synthetic_face(512, 512)[:32, :32].transpose(2, 0, 1)[None],
+                                np.float32)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2642,6 +3056,7 @@ def main() -> int:
     by_path.update(phase_algos(dp, kernels, dev, card))
     by_path.update(phase_fast(dp, kernels, dev, card))
     by_path.update(phase_special(dp, kernels, dev, card))
+    by_path.update(phase_zoo(dp, kernels, dev, card))
     # each kernel's count on the main-path solve that is its own; bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
     # rows (BSRMat.route), and phase check_bsr holds the tile kernel; nor

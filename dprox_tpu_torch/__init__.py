@@ -24,7 +24,11 @@ hot kernels are hand-written for Hopper (``ops/kernels.py``, sources in
 * the plug-and-play priors: TV (2-D through the ``tv_denoise_chw`` kernel,
   3-D plain) and the FFDNet family with shipped weights, gray and color,
   fused with TV, in bfloat16, as ensembles and as the x8 self-ensemble
-  (``deep_prior(x8=True)``);
+  (``deep_prior(x8=True)``); the rest of the denoiser zoo (DRUNet and the
+  FFDNet + DRUNet ``ensemble_tv``, IRCNN, UNet, FFDNet3D, the GRUNet and
+  QRNN3D hyperspectral nets, non-local means ``patch_nlm``) and the
+  DGUNet ``unrolled_prior`` with its stateful loop, with the derain
+  pipeline (``contrib.derain``);
 * the specializations (``dp.specialize``, ``dp.train``): unrolling with
   learned schedules, the deep-equilibrium solver with its implicit
   backward (Anderson and Broyden), the RL tuner (direct backprop and
@@ -47,6 +51,6 @@ from .linop import (BlackBox, Constant, LinOp, LinOpFactory, Placeholder, Variab
                     conv_doe, copy, est_CompGraph_norm, est_norm, eval, grad, gram, mosaic,
                     mul_color, mul_elementwise, scale, split, sum, validate, vstack)
 from .proxfn import (ProxFn, compress_sensing, csmri, deep_prior, ext_sum_squares, get_denoiser,
-                     least_squares, misr, nonneg, norm1, norm2, phase_ret, sisr, spi, sum_squares,
-                     weighted_sum_squares)
+                     least_squares, misr, nonneg, norm1, norm2, patch_nlm, phase_ret, sisr, spi,
+                     sum_squares, unrolled_prior, weighted_sum_squares)
 from .utils.misc import to_tensor as tensor

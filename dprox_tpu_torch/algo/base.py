@@ -204,7 +204,16 @@ class Algorithm:
             return out[0].permute(1, 2, 0)
         return out
 
+    def _has_stateful(self):
+        """Whether a proxfn carries state between iterations
+        (``unrolled_prior``): the loop hands it the step index as an int
+        and resets it at the start of every solve."""
+        return any(getattr(fn, "stateful", False) for fn in self.psi_fns + self.omega_fns)
+
     def _run(self, x0, rhos, lams, max_iter, params, on_step=None):
+        for fn in self.psi_fns + self.omega_fns:
+            if getattr(fn, "stateful", False):
+                fn.reset()
         orig_shape = tuple(x0.shape) if hasattr(x0, "shape") else None
         x0 = self._prepare_x0(x0)
         rhos, lam_list = self.defaults(rhos, lams, max_iter)

@@ -1,4 +1,4 @@
-"""FFDNet denoiser (Zhang et al., TIP 2018) as an ``nn.Module``, NCHW.
+"""FFDNet denoisers (Zhang et al., TIP 2018) as ``nn.Module``s, NCHW.
 
 Counterpart of dprox_tpu/models/ffdnet.py::FFDNet.__call__:
 pixel-unshuffle (sf=2) -> concat noise-level map -> nb conv(+ReLU) stack
@@ -40,3 +40,22 @@ class FFDNet(nn.Module):
         x = pixel_shuffle(self.convs[-1](x), 2)
         x = x[:, :, :h, :w]
         return x_in - x if self.residual else x
+
+
+class FFDNet3D(nn.Module):
+    """Hyperspectral variant of dprox_tpu/models/ffdnet.py::FFDNet3D: the
+    caller concatenates the sigma map as the last of the ``in_nc``
+    channels; no residual."""
+
+    def __init__(self, in_nc: int = 32, out_nc: int = 31, nc: int = 64, nb: int = 15):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [Conv(in_nc * 4, nc)] + [Conv(nc, nc) for _ in range(nb - 2)]
+            + [Conv(nc, out_nc * 4)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, h, w = replication_pad_to_even(x, 2)
+        x = pixel_unshuffle(x, 2)
+        for conv in self.convs[:-1]:
+            x = torch.relu(conv(x))
+        return pixel_shuffle(self.convs[-1](x), 2)[:, :, :h, :w]

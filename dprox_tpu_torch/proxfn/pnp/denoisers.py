@@ -1,9 +1,11 @@
 """Denoiser wrappers: a uniform ``denoise(x, sigma)`` on BCHW tensors.
 
-Counterpart of dprox_tpu/proxfn/pnp/denoisers.py for the FFDNet family:
-the gray ``FFDNetDenoiser`` (bands folded into the batch by
-``Denoiser2D``), ``FFDNetColorDenoiser``, ``TVDenoiser`` (2-D or 3-D),
-the x8 dihedral self-ensemble ``Augment``, ``BF16Denoiser``,
+Counterpart of dprox_tpu/proxfn/pnp/denoisers.py: the gray
+``FFDNetDenoiser`` (bands folded into the batch by ``Denoiser2D``),
+``FFDNetColorDenoiser``, ``FFDNet3DDenoiser``, ``DRUNetDenoiser`` (with
+the quadrant split above ``min_size``), ``IRCNNDenoiser`` (25 weight sets,
+the set picked on the device), ``UNetDenoiser``, ``TVDenoiser`` (2-D or
+3-D), the x8 dihedral self-ensemble ``Augment``, ``BF16Denoiser``,
 ``EnsembleDenoiser`` and ``DeepTVDenoiser``. The 2-D TV branch always goes
 through the fused TV kernel wrapper (ops/kernels.py::tv_denoise_chw),
 which launches the CUDA kernel for CUDA tensors and runs its plain version
@@ -21,12 +23,16 @@ import copy
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
-from ...models import FFDNet
+from ...models import IRCNN, FFDNet, FFDNet3D, UNet, UNetRes
+from ...models.convert import load_torch_state_dict, positional_state_dict
 from ...models.tv import tv_denoising3d_chw
 from ...ops.kernels import tv_denoise_chw
-from ...utils.checkpoint import ffdnet_state_dict_from_flax, load_flax_msgpack
+from ...utils.checkpoint import (conv_stack_state_dict_from_flax, ffdnet_state_dict_from_flax,
+                                 load_flax_msgpack, unet_state_dict_from_flax,
+                                 unetres_state_dict_from_flax)
 
 
 class Denoiser:
@@ -60,26 +66,29 @@ def denoise_with(denoiser, x, sigma, params=None):
 
 
 class _NetDenoiser(Denoiser):
-    """A frozen FFDNet ``self.module``, built from flax-layout ``params``
-    (a nested dict of arrays, as ``flax.serialization.msgpack_restore`` or
-    ``jax.tree.map(np.asarray, params)`` gives it) or a ``.msgpack``
-    checkpoint; with neither it is initialized from a fixed seed."""
+    """A frozen network ``self.module`` built by ``build()`` from a fixed
+    seed, then loaded from flax-layout ``params`` (a nested dict of arrays,
+    as ``flax.serialization.msgpack_restore`` or ``jax.tree.map(np.asarray,
+    params)`` gives it) through ``from_flax``, or from a checkpoint: a
+    ``.msgpack`` the same way, a torch state dict (``.pth``) through
+    ``from_torch(state_dict, module)`` (default: by position,
+    ``models/convert.py``). With neither it keeps its seeded weights."""
 
-    def __init__(self, in_nc, params, ckpt_path, nc, nb, residual):
+    def _setup(self, build, params, ckpt_path, from_flax, from_torch=positional_state_dict):
+        sd = None
         if params is None and ckpt_path is not None:
-            if not str(ckpt_path).endswith(".msgpack"):
-                raise NotImplementedError(
-                    f"{ckpt_path}: torch (.pth) checkpoints of the reference layout "
-                    "come with models/convert.py (ROADMAP Queue 1 item 6)")
-            params = load_flax_msgpack(ckpt_path)
+            if str(ckpt_path).endswith(".msgpack"):
+                params = load_flax_msgpack(ckpt_path)
+            else:
+                sd = load_torch_state_dict(ckpt_path)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            self.module = FFDNet(in_nc=in_nc, out_nc=in_nc, nc=nc, nb=nb, residual=residual)
+            self.module = build()
         if params is not None:
-            self.module.load_state_dict(ffdnet_state_dict_from_flax(params))
+            self.module.load_state_dict(from_flax(params))
+        elif sd is not None:
+            self.module.load_state_dict(from_torch(sd, self.module))
         self.module.requires_grad_(False).eval()
-        # nb 3x3 layers at half resolution (pixel-unshuffle sf=2)
-        self.receptive_radius = 2 * nb
 
     def to(self, device):
         self.module.to(device)
@@ -91,10 +100,21 @@ class _NetDenoiser(Denoiser):
         names), the form ``denoise(..., params=)`` takes."""
         return dict(self.module.state_dict())
 
-    def _net(self, x, sigma, params):
+    def _net(self, params, *args):
         if params is None:
-            return self.module(x, sigma)
-        return functional_call(self.module, params, (x, sigma))
+            return self.module(*args)
+        return functional_call(self.module, params, args)
+
+
+def _ffdnet(in_nc, nc, nb, residual):
+    return lambda: FFDNet(in_nc=in_nc, out_nc=in_nc, nc=nc, nb=nb, residual=residual)
+
+
+def _with_sigma_map(x, sigma):
+    """x with a last channel holding sigma (one value or one per batch
+    element)."""
+    sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device).reshape(-1, 1, 1, 1)
+    return torch.cat([x, torch.ones_like(x[:, :1]) * sigma], dim=1)
 
 
 class Denoiser2D(Denoiser):
@@ -114,10 +134,12 @@ class FFDNetDenoiser(_NetDenoiser, Denoiser2D):
 
     def __init__(self, params=None, ckpt_path: Optional[str] = None,
                  nc: int = 64, nb: int = 15, residual: bool = False):
-        super().__init__(1, params, ckpt_path, nc, nb, residual)
+        self._setup(_ffdnet(1, nc, nb, residual), params, ckpt_path, ffdnet_state_dict_from_flax)
+        # nb 3x3 layers at half resolution (pixel-unshuffle sf=2)
+        self.receptive_radius = 2 * nb
 
     def _denoise_gray(self, x, sigma, params=None):
-        return self._net(x, sigma, params)
+        return self._net(params, x, sigma)
 
 
 class FFDNetColorDenoiser(_NetDenoiser):
@@ -125,10 +147,128 @@ class FFDNetColorDenoiser(_NetDenoiser):
 
     def __init__(self, params=None, ckpt_path: Optional[str] = None,
                  nc: int = 96, nb: int = 12, residual: bool = False):
-        super().__init__(3, params, ckpt_path, nc, nb, residual)
+        self._setup(_ffdnet(3, nc, nb, residual), params, ckpt_path, ffdnet_state_dict_from_flax)
+        self.receptive_radius = 2 * nb
 
     def denoise(self, x, sigma, params=None):
-        return self._net(x, sigma, params)
+        return self._net(params, x, sigma)
+
+
+class FFDNet3DDenoiser(_NetDenoiser):
+    """Hyperspectral FFDNet: the sigma map concatenated as the last input
+    channel."""
+
+    def __init__(self, params=None, ckpt_path: Optional[str] = None, in_nc: int = 32,
+                 out_nc: int = 31):
+        self._setup(lambda: FFDNet3D(in_nc=in_nc, out_nc=out_nc, nc=64, nb=15), params,
+                    ckpt_path, ffdnet_state_dict_from_flax)
+
+    def denoise(self, x, sigma, params=None):
+        return self._net(params, _with_sigma_map(x, sigma))
+
+
+class DRUNetDenoiser(_NetDenoiser):
+    """DRUNet (UNetRes) on [x, sigma map]: edge-padded to a multiple of
+    ``modulo``; above ``min_size`` the four quadrants, each with an
+    8-pixel shared border, run one after another and are stitched.
+    ``residual``: the net predicts the noise (identity as sigma -> 0)."""
+
+    def __init__(self, n_channels: int = 3, params=None, ckpt_path: Optional[str] = None,
+                 min_size: int = 256, modulo: int = 16, nc=(64, 128, 256, 512), nb: int = 4,
+                 residual: bool = False):
+        self.n_channels, self.min_size, self.modulo = n_channels, min_size, modulo
+        self.residual = residual
+        self._setup(lambda: UNetRes(in_nc=n_channels + 1, out_nc=n_channels, nc=tuple(nc),
+                                    nb=nb), params, ckpt_path,
+                    lambda tree: unetres_state_dict_from_flax(tree, nb),
+                    from_torch=lambda sd, module: sd)
+
+    def _apply(self, x, params):
+        h, w = x.shape[-2:]
+        ph, pw = (-h) % self.modulo, (-w) % self.modulo
+        if ph or pw:
+            x = F.pad(x, (0, pw, 0, ph), mode="replicate")
+        out = self._net(params, x)
+        if self.residual:
+            out = x[:, :out.shape[1]] - out
+        return out[..., :h, :w]
+
+    def denoise(self, x, sigma, params=None):
+        inp = _with_sigma_map(x, sigma)
+        h, w = inp.shape[-2:]
+        if max(h, w) <= self.min_size:
+            return self._apply(inp, params)
+        h2, w2 = (h + 1) // 2, (w + 1) // 2
+        quads = [inp[..., :h2 + 8, :w2 + 8], inp[..., :h2 + 8, w - (w2 + 8):],
+                 inp[..., h - (h2 + 8):, :w2 + 8], inp[..., h - (h2 + 8):, w - (w2 + 8):]]
+        outs = [self._apply(q, params) for q in quads]
+        top = torch.cat([outs[0][..., :h2, :w2], outs[1][..., :h2, -(w - w2):]], dim=-1)
+        bot = torch.cat([outs[2][..., -(h - h2):, :w2], outs[3][..., -(h - h2):, -(w - w2):]],
+                        dim=-1)
+        return torch.cat([top, bot], dim=-2)
+
+
+IRCNN_SETS = 25
+
+
+class IRCNNDenoiser(_NetDenoiser, Denoiser2D):
+    """IRCNN with 25 weight sets, one per noise level band: the set is
+    picked from sigma on the device (``torch.index_select`` with a device
+    index), so a call reads nothing back to the host. ``params`` / the
+    ``params=`` of ``denoise`` are the stacked sets (leading axis 25); a
+    reference checkpoint is a dict of 25 state dicts keyed '0'..'24'."""
+
+    def __init__(self, n_channels: int = 1, params_stack=None, ckpt_path: Optional[str] = None):
+        # 7 dilated conv layers, dilations 1..4..1 -> radius sum(d_i)
+        self.receptive_radius = 16
+        self._setup(lambda: IRCNN(in_nc=n_channels, out_nc=n_channels, nc=64), None, None, None)
+        if params_stack is None and ckpt_path is not None:
+            if str(ckpt_path).endswith(".msgpack"):
+                params_stack = load_flax_msgpack(ckpt_path)
+            else:
+                raw = torch.load(ckpt_path, map_location="cpu")
+                sets = [positional_state_dict(raw[str(i)], self.module)
+                        for i in range(IRCNN_SETS)]
+                self.stack = {k: torch.stack([s[k] for s in sets]) for k in sets[0]}
+        if params_stack is not None:
+            self.stack = conv_stack_state_dict_from_flax(params_stack)
+        elif not hasattr(self, "stack"):
+            self.stack = {k: torch.stack([v] * IRCNN_SETS)
+                          for k, v in self.module.state_dict().items()}
+
+    def to(self, device):
+        super().to(device)
+        self.stack = {k: v.to(device) for k, v in self.stack.items()}
+        return self
+
+    @property
+    def params(self):
+        return dict(self.stack)
+
+    @staticmethod
+    def set_index(sigma) -> torch.Tensor:
+        """[1] int64 index of the weight set for noise level ``sigma`` (its
+        largest entry): ceil(255 sigma / 2) - 1, clipped to [0, 24]."""
+        sig = torch.max(torch.as_tensor(sigma)).reshape(1)
+        return torch.clamp(torch.ceil(sig * 255.0 / 2.0) - 1, 0, IRCNN_SETS - 1).to(torch.int64)
+
+    def _denoise_gray(self, x, sigma, params=None):
+        stack = self.stack if params is None else params
+        idx = self.set_index(torch.as_tensor(sigma, dtype=x.dtype, device=x.device))
+        return self._net({k: torch.index_select(v, 0, idx)[0] for k, v in stack.items()}, x)
+
+
+class UNetDenoiser(_NetDenoiser, Denoiser2D):
+    """The CS-MRI 'unet-nm' prior per band: input [x, sigma map], residual
+    out, clipped to [0, 1]."""
+
+    def __init__(self, params=None, ckpt_path: Optional[str] = None):
+        self._setup(lambda: UNet(in_channels=2, out_channels=1), params, ckpt_path,
+                    unet_state_dict_from_flax)
+
+    def _denoise_gray(self, x, sigma, params=None):
+        out = self._net(params, _with_sigma_map(x, sigma))
+        return torch.minimum(torch.maximum(out, out.new_zeros(())), out.new_ones(()))
 
 
 class TVDenoiser(Denoiser):

@@ -2,9 +2,10 @@
 
 Counterpart of dprox_tpu/proxfn/pnp/prior.py: ``deep_prior`` (with
 ``x8``, ``param_key`` and ``unroll_step``; without the spatial mesh) and
-``get_denoiser`` for TV and the FFDNet family whose weights ship
-in ``weights/``, gray and color, with the DeepTV fusions and the
-bfloat16 flagship. The prox of the learned prior is a denoiser evaluated
+``get_denoiser`` with every kind of the JAX package's registry: TV, the
+FFDNet family (gray and color, the DeepTV fusions, the bfloat16
+flagship), DRUNet and the FFDNet + DRUNet ``ensemble_tv``, IRCNN, UNet,
+and the hyperspectral GRUNet / QRNN3D nets. The prox of the learned prior is a denoiser evaluated
 at a noise level derived from lam. Trainable denoiser weights travel in
 the solver's ``params`` dict under ``param_key`` (a weight dict with the
 network's ``state_dict`` names), so unrolled and DEQ training
@@ -19,8 +20,10 @@ import torch
 
 from ...utils.misc import safe_sqrt
 from ..base import ProxFn
-from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, FFDNetColorDenoiser,
-                        FFDNetDenoiser, TVDenoiser, denoise_with)
+from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, DRUNetDenoiser,
+                        EnsembleDenoiser, FFDNetColorDenoiser, FFDNetDenoiser, IRCNNDenoiser,
+                        TVDenoiser, UNetDenoiser, denoise_with)
+from .grunet import GRUNetDenoiser, GRUNetTVDenoiser, QRNN3DDenoiser
 from .hub import find_weights as _find_weights
 
 
@@ -36,8 +39,10 @@ def find_weights(filename: str, kind: Optional[str] = None) -> Optional[str]:
     return path
 
 
-# Denoiser registry: kind -> constructor. ``ffdnet`` and ``ffdnet_color``
-# have no shipped weights and run untrained, with a warning.
+# Denoiser registry: kind -> constructor, the kinds of
+# dprox_tpu/proxfn/pnp/prior.py::get_denoiser. Kinds whose weights are not
+# in weights/ (ffdnet, ffdnet_color, mid_drunet_color, drunet_color, drunet,
+# ircnn, unet, grunet, grunet_tv, qrnn3d) run untrained, with a warning.
 _REGISTRY = {
     "tv": lambda kind: TVDenoiser(),
     "ffdnet": lambda kind: FFDNetDenoiser(ckpt_path=find_weights("ffdnet_gray.pth", kind)),
@@ -69,6 +74,42 @@ _REGISTRY = {
     # the flagship with its network in bfloat16; TV and the fusion in float32
     "distilled_color_tv_bf16": lambda kind: DeepTVDenoiser(
         BF16Denoiser(get_denoiser("distilled_color")), weight=0.6),
+    # compact residual UNetRes (nc 32..256, nb 2) and its scaled-up sibling
+    "tiny_drunet_color": lambda kind: DRUNetDenoiser(
+        3, ckpt_path=find_weights("tiny_drunet_color.msgpack", kind),
+        nc=(32, 64, 128, 256), nb=2, residual=True),
+    "tiny_drunet_color_tv": lambda kind: DeepTVDenoiser(get_denoiser("tiny_drunet_color"),
+                                                        weight=0.5),
+    "mid_drunet_color": lambda kind: DRUNetDenoiser(
+        3, ckpt_path=find_weights("mid_drunet_color.msgpack", kind),
+        nc=(48, 96, 192, 384), nb=3, residual=True),
+    "mid_drunet_color_tv": lambda kind: DeepTVDenoiser(get_denoiser("mid_drunet_color"),
+                                                       weight=0.5),
+    # 0.6 FFDNet + 0.4 DRUNet (decorrelated residual errors), fused with TV
+    "ensemble_tv": lambda kind: DeepTVDenoiser(EnsembleDenoiser(
+        [get_denoiser("res_ffdnet_color"), get_denoiser("tiny_drunet_color")],
+        weights=[0.6, 0.4]), weight=0.5),
+    "drunet_color": lambda kind: DRUNetDenoiser(
+        3, ckpt_path=find_weights("drunet_color.pth", kind)),
+    "drunet": lambda kind: DRUNetDenoiser(1, ckpt_path=find_weights("drunet_gray.pth", kind)),
+    "ircnn": lambda kind: IRCNNDenoiser(1, ckpt_path=find_weights("ircnn_gray.pth", kind)),
+    "unet": lambda kind: UNetDenoiser(ckpt_path=find_weights("unet-nm.pt", kind)),
+    # hyperspectral: the reference's GRUNet / QRNN3D layouts and the
+    # in-repo-trained tiny (base 8) and mid (base 12) GRUNets, alone and
+    # blended with 3-D TV (weight 0.4)
+    "grunet": lambda kind: GRUNetDenoiser(ckpt_path=find_weights("unet_qrnn3d.pth", kind)),
+    "qrnn3d": lambda kind: QRNN3DDenoiser(ckpt_path=find_weights("qrnn3d.pth", kind)),
+    "grunet_tv": lambda kind: GRUNetTVDenoiser(
+        ckpt_path=find_weights("unet_qrnn3d.pth", kind)),
+    "tiny_grunet": lambda kind: GRUNetDenoiser(
+        ckpt_path=find_weights("tiny_grunet.msgpack", kind), base=8),
+    "mid_grunet": lambda kind: GRUNetDenoiser(
+        ckpt_path=find_weights("mid_grunet.msgpack", kind), base=12),
+    "mid_grunet_tv": lambda kind: GRUNetTVDenoiser(
+        ckpt_path=find_weights("mid_grunet.msgpack", kind), base=12, weight=0.4, use_3dtv=True),
+    "tiny_grunet_tv": lambda kind: GRUNetTVDenoiser(
+        ckpt_path=find_weights("tiny_grunet.msgpack", kind), base=8, weight=0.4,
+        use_3dtv=True),
 }
 PORTED_KINDS = tuple(_REGISTRY)
 
@@ -76,8 +117,7 @@ PORTED_KINDS = tuple(_REGISTRY)
 def get_denoiser(kind: str) -> Denoiser:
     """Denoiser registry keyed by name (``PORTED_KINDS``)."""
     if kind not in _REGISTRY:
-        raise KeyError(f"unknown or not yet ported denoiser '{kind}' "
-                       f"(ported: {', '.join(PORTED_KINDS)})")
+        raise KeyError(f"unknown denoiser '{kind}' (kinds: {', '.join(PORTED_KINDS)})")
     return _REGISTRY[kind](kind)
 
 

@@ -6,13 +6,18 @@ msgpack those files use (maps, strings, binary, arrays, ints, floats,
 nil, bool) plus flax's extension type 1 (ndarray), whose payload is
 itself a msgpack triple ``(shape, dtype_name, raw_bytes)``. The
 converters below carry the JAX package's flax params (from a msgpack, or
-as numpy arrays) into the port's modules: FFDNet, the RL tuner's networks
-and a trained DEQ's params.
+as numpy arrays) into the port's modules: FFDNet (and FFDNet3D), the RL
+tuner's networks, a trained DEQ's params, and the zoo: UNetRes, the conv
+stacks (DnCNN, IRCNN's 25 weight sets), UNet, OpticsUNet, GRUnet and
+QRNNREDC3D, DGUDenoiser and the derain LearnableDegOp. Kernels go from
+HWIO to OIHW (3-D: DHWIO to OIDHW); a flax ``nn.ConvTranspose`` kernel
+(HWIO, ``transpose_kernel=False``) becomes torch's true-adjoint
+``ConvTranspose2d`` weight with its taps flipped and in/out swapped.
 """
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,3 +157,227 @@ def deq_params_from_flax(tree: Dict[str, Any]) -> Dict[str, Any]:
     return {"deq_r": torch.tensor(np.float32(tree["deq_r"])),
             "deq_l": torch.tensor(np.float32(tree["deq_l"])),
             "deq_prior": ffdnet_state_dict_from_flax(tree["deq_prior"])}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def conv_weight_from_flax(kernel, spatial: int = 2) -> torch.Tensor:
+    """flax conv kernel (``spatial`` kernel axes, then in, out; leading
+    stack axes kept) -> torch (out, in, kernel axes): HWIO -> OIHW, DHWIO
+    -> OIDHW."""
+    k = np.asarray(kernel, np.float32)
+    lead = k.ndim - spatial - 2
+    order = list(range(lead)) + [k.ndim - 1, k.ndim - 2] + list(range(lead, lead + spatial))
+    return _t(k.transpose(order))
+
+
+def convt_weight_from_flax(kernel) -> torch.Tensor:
+    """flax ``nn.ConvTranspose`` kernel (H, W, in, out) -> torch
+    ``ConvTranspose2d`` weight (in, out, H, W) with the taps flipped."""
+    k = np.asarray(kernel, np.float32)
+    return _t(k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+
+
+def _conv_into(sd, prefix, layer, transposed=False, spatial=2):
+    if transposed:
+        sd[prefix + "weight"] = convt_weight_from_flax(layer["kernel"])
+    else:
+        sd[prefix + "weight"] = conv_weight_from_flax(layer["kernel"], spatial)
+    if "bias" in layer:
+        sd[prefix + "bias"] = _t(layer["bias"])
+
+
+def unetres_state_dict_from_flax(tree: Dict[str, Any], nb: int) -> Dict[str, torch.Tensor]:
+    """DRUNet ``UNetRes`` params (``Conv_0`` head, ``ResBlock_k`` in
+    creation order, ``DownStrideConv_i``, ``UpTransposeConv_i``, ``Conv_1``
+    tail) -> ``models.drunet.UNetRes`` state dict (the reference's names)."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_into(sd, "m_head.", p["Conv_0"]["Conv_0"])
+    _conv_into(sd, "m_tail.", p["Conv_1"]["Conv_0"])
+
+    def res(prefix, k):
+        for j, name in ((0, "Conv_0"), (2, "Conv_1")):
+            _conv_into(sd, f"{prefix}.res.{j}.", p[f"ResBlock_{k}"][name]["Conv_0"])
+
+    for s in range(3):
+        for j in range(nb):
+            res(f"m_down{s + 1}.{j}", s * nb + j)
+        _conv_into(sd, f"m_down{s + 1}.{nb}.", p[f"DownStrideConv_{s}"]["Conv_0"])
+    for j in range(nb):
+        res(f"m_body.{j}", 3 * nb + j)
+    for i, s in enumerate((3, 2, 1)):
+        _conv_into(sd, f"m_up{s}.0.", p[f"UpTransposeConv_{i}"]["ConvTranspose_0"],
+                   transposed=True)
+        for j in range(nb):
+            res(f"m_up{s}.{1 + j}", (4 + i) * nb + j)
+    return sd
+
+
+def conv_stack_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """DnCNN / FDnCNN / IRCNN params (``Conv_i/Conv_0``) -> the ``model``
+    stack of ``models/dncnn.py`` (conv i at ``model.{2i}``). A leading
+    stack axis (IRCNN's 25 weight sets) is kept."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(p)):
+        _conv_into(sd, f"model.{2 * i}.", p[f"Conv_{i}"]["Conv_0"])
+    return sd
+
+
+def unet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """UNet params (``ConvBlock_0..4`` down, ``5..8`` up, ``Conv_0`` out)
+    -> ``models.unet.UNet`` state dict."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for b in range(9):
+        prefix = f"down.{b}" if b < 5 else f"up.{b - 5}"
+        for j in range(3):
+            _conv_into(sd, f"{prefix}.{j}.", p[f"ConvBlock_{b}"][f"Conv_{j}"]["Conv_0"])
+    _conv_into(sd, "out.", p["Conv_0"])
+    return sd
+
+
+def optics_unet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """OpticsUNet params -> ``models.optics_unet.OpticsUNet`` state dict."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for b in range(9):
+        prefix = f"enc.{b}" if b < 5 else f"dec.{b - 5}"
+        for j, name in enumerate(("conv1", "conv2", "shortcut")):
+            _conv_into(sd, f"{prefix}.{name}.", p[f"OpticsConvBlock_{b}"][f"Conv_{j}"])
+    for i in range(4):
+        _conv_into(sd, f"down.{i}.", p[f"Conv_{i}"])
+        _conv_into(sd, f"up.{i}.", p[f"ConvTranspose_{i}"], transposed=True)
+    _conv_into(sd, "out.", p["Conv_4"])
+    return sd
+
+
+def _qrnn_layer_into(sd, prefix, node):
+    """A flax QRNNConv3D / BiQRNNConv3D subtree -> ``prefix.conv.*``."""
+    wrapper = node.get("UpsampleConv3d_0")
+    if wrapper is not None:
+        conv = wrapper["Conv3d_0"]["Conv_0"]
+    else:
+        wrapper = node["Conv3d_0"]
+        conv = wrapper["Conv_0"]
+    _conv_into(sd, prefix + ".conv.conv.", conv, spatial=3)
+    if "bn_scale" in wrapper:
+        sd[prefix + ".conv.bn_scale"] = _t(wrapper["bn_scale"])
+        sd[prefix + ".conv.bn_shift"] = _t(wrapper["bn_shift"])
+
+
+def grunet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """GRUnet params (flax creation order: ``BiQRNNConv3D_0``, then
+    ``QRNNConv3D_i`` / ``ConvBlock_i`` alternating down and up,
+    ``BiQRNNConv3D_1``) -> ``models.qrnn.GRUnet`` state dict."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    names = ["Down1", "Down2", "Down3", "Down4", "Up5", "Up4", "Up3", "Up2"]
+    blocks = ["Conv2", "Conv3", "Conv4", "Conv5", "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2"]
+    _qrnn_layer_into(sd, "Conv1", p["BiQRNNConv3D_0"])
+    _qrnn_layer_into(sd, "Conv", p["BiQRNNConv3D_1"])
+    for i, (layer, block) in enumerate(zip(names, blocks)):
+        _qrnn_layer_into(sd, layer, p[f"QRNNConv3D_{i}"])
+        for j, sub in enumerate(("conv1", "conv2", "shortcut")):
+            _qrnn_layer_into(sd, f"{block}.{sub}", p[f"ConvBlock_{i}"][f"QRNNConv3D_{j}"])
+    return sd
+
+
+def qrnn3d_state_dict_from_flax(tree: Dict[str, Any], num_half_layer: int = 5
+                                ) -> Dict[str, torch.Tensor]:
+    """QRNNREDC3D params (``BiQRNNConv3D_0`` features, ``QRNNConv3D_i``
+    encoder then decoder, ``BiQRNNConv3D_1`` reconstructor) ->
+    ``models.qrnn.QRNNREDC3D`` state dict."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _qrnn_layer_into(sd, "feature_extractor", p["BiQRNNConv3D_0"])
+    _qrnn_layer_into(sd, "reconstructor", p["BiQRNNConv3D_1"])
+    for i in range(2 * num_half_layer):
+        part = "encoder" if i < num_half_layer else "decoder"
+        _qrnn_layer_into(sd, f"{part}.{i % num_half_layer}", p[f"QRNNConv3D_{i}"])
+    return sd
+
+
+# the reference DGUNet's torch prefixes -> flax top-level names
+# (dprox_tpu/models/dgu.py::_DGU_TOP)
+_DGU_TOP = {
+    "shallow_feat1.0": "shallow1_0", "shallow_feat1.1": "shallow1_1",
+    "stage1_encoder": "enc1", "stage1_decoder": "dec1", "sam12": "sam12",
+    "basic.shallow_feat2.0": "shallow2_0", "basic.shallow_feat2.1": "shallow2_1",
+    "basic.merge12": "merge12", "basic.stage2_encoder": "enc2",
+    "basic.stage2_decoder": "dec2", "basic.sam23": "sam23",
+    "shallow_feat7.0": "shallow7_0", "shallow_feat7.1": "shallow7_1",
+    "concat67": "concat67", "tail": "tail",
+}
+
+
+def dgu_flax_path(key: str) -> Optional[Tuple[str, ...]]:
+    """The flax param path of a reference-named DGUNet state-dict key (the
+    rewrite of dprox_tpu/models/dgu.py::_dgu_rewrite_key), or None for a
+    key with no flax counterpart."""
+    for prefix, top in _DGU_TOP.items():
+        if key.startswith(prefix + "."):
+            rest = key[len(prefix) + 1:]
+            break
+    else:
+        return None
+    if rest == "body.1.weight":  # CAB's PReLU
+        return (top, "prelu", "alpha")
+    parts = rest.split(".")
+    out, i = [top], 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p in ("body", "skip_conv") and parts[i + 1].isdigit():
+            if i + 2 < len(parts) and parts[i + 2] in ("up", "conv_block"):
+                out.append(f"{parts[i + 2]}_{parts[i + 1]}")
+                i += 3
+            else:
+                out.append(f"{p}_{parts[i + 1]}")
+                i += 2
+        elif p == "conv_du" and parts[i + 1].isdigit():
+            out.append(f"conv_du_{parts[i + 1]}")
+            i += 2
+        elif p == "norm":
+            return tuple(out) + ({"weight": "in_gamma", "bias": "in_beta"}[parts[i + 1]],)
+        else:
+            out.append(p)
+            i += 1
+    return tuple(out) + ({"weight": "kernel", "bias": "bias"}[parts[-1]],)
+
+
+def dgu_state_dict_from_flax(tree: Dict[str, Any], keys: Iterable[str]
+                             ) -> Dict[str, torch.Tensor]:
+    """DGUDenoiser params -> the state dict of ``models.dgu.DGUDenoiser``
+    for its ``keys`` (``module.state_dict().keys()``), each read at its
+    flax path (``dgu_flax_path``)."""
+    root = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for key in keys:
+        path = dgu_flax_path(key)
+        node = root
+        for name in path:
+            node = node[name]
+        if path[-1] != "kernel":
+            sd[key] = _t(node)
+        elif path[-2].startswith("up_"):
+            sd[key] = convt_weight_from_flax(node)
+        else:
+            sd[key] = conv_weight_from_flax(node)
+    return sd
+
+
+def deg_op_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The derain ``LearnableDegOp`` params ({name: {params: {Conv_0,
+    PReLU_0, Conv_1}}}) -> {name: ``contrib.derain.ResBlock`` state dict}."""
+    out = {}
+    for name, sub in tree.items():
+        p = sub["params"]
+        sd: Dict[str, torch.Tensor] = {}
+        _conv_into(sd, "body.0.", p["Conv_0"])
+        sd["body.1.weight"] = _t(p["PReLU_0"]["alpha"])
+        _conv_into(sd, "body.2.", p["Conv_1"])
+        out[name] = sd
+    return out

@@ -30,6 +30,12 @@ policies (their samples need sklearn's photographs).
 
 Only the special phase (about 2 minutes) and the cross-task goldens:
     JAX_PLATFORMS=cpu python scripts/smoke_references.py special
+
+Only the zoo phase's values (key "zoo", JAX_CPU_ZOO in chip_smoke.py and
+the pinned values of tests/test_torch_zoo_golden.py), which also writes the
+derain golden crops, ground truth and rainy input, that the port reads
+(tests/data/derain_golden_crops.npz):
+    JAX_PLATFORMS=cpu python scripts/smoke_references.py zoo
 """
 import json
 import os
@@ -392,6 +398,127 @@ def cross_task_goldens():
     return out
 
 
+HSI_GRID = [("deblur", "tiny_grunet"), ("sisr", "tiny_grunet"), ("misr", "tiny_grunet_tv"),
+            ("cs", "tiny_grunet")]  # tests/paper/test_hsi_grid.py::HSI_GRID
+DERAIN_CROPS = (0, 4)  # tests/test_training.py::DERAIN_GOLDEN
+DERAIN_FILE = os.path.join(ROOT, "tests", "data", "derain_golden_crops.npz")
+
+
+def blur64(img, psf):
+    """img blurred circularly by psf in float64, rounded to float32."""
+    otf = psf2otf(np.asarray(psf).squeeze(), img.shape[-2:])
+    return np.real(np.fft.ifft2(otf * np.fft.fft2(np.asarray(img, np.float64)))).astype(np.float32)
+
+
+def hsi_task(name, prior, gt, srf, sigma_n=0.05):
+    """tests/paper/test_hsi_grid.py::_task on the given cube, the deblur
+    observation blurred in float64 with numpy (chip_smoke.py::hsi_task);
+    returns the mPSNR."""
+    B = gt.shape[1]
+    x = dp.Variable()
+    reg = dp.deep_prior(x, prior, sqrt=True)
+    if name == "deblur":
+        b = noisy(blur64(gt, imaging.point_spread_function(9, 2)))
+        data, x0 = dp.sum_squares(dp.conv(x, imaging.point_spread_function(9, 2)) - b), b
+    elif name == "sisr":
+        psf7 = imaging.point_spread_function(7, 2)
+        hy, hx0 = sr_observation(gt, psf7, 2)
+        data = dp.sisr(x, dp.utils.array(noisy(hy)),
+                       dp.utils.array(np.transpose(psf7, (2, 0, 1))[None]), 2)
+        x0 = noisy(hx0)
+    elif name == "misr":
+        hb = noisy(np.einsum("ck,nkp->ncp", srf.T, gt.reshape(1, B, -1)).reshape(1, 3, 64, 64))
+        data, x0 = dp.misr(x, dp.utils.array(hb), srf), np.repeat(hb.mean(1, keepdims=True), B, 1)
+    else:
+        mask = (np.random.RandomState(0).rand(1, B, 64, 64) > 0.5).astype(np.float32)
+        hy = noisy(np.sum(gt * mask, axis=1, keepdims=True))
+        data = dp.compress_sensing(x, dp.utils.array(mask), dp.utils.array(hy))
+        x0 = np.repeat(hy / (B // 2), B, axis=1)
+    rhos, sigmas = dp.log_descent(35 + 300 * sigma_n, 10 + 200 * sigma_n, 24, sigma=sigma_n)
+    got = dp.compile([data, reg], "admm").solve(x0=jnp.asarray(x0), rhos=rhos, lams=sigmas,
+                                                max_iter=24)
+    hwc = lambda a: np.transpose(np.asarray(a)[0], (1, 2, 0))  # noqa: E731
+    return metrics.mpsnr(hwc(jnp.real(got)), hwc(gt))
+
+
+def derain_crops():
+    """The DERAIN_GOLDEN crops (ground truth and JAX's synthetic rain),
+    written to DERAIN_FILE: uint8 ground truth, float32 rainy input."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_derain as T
+
+    crops = T.hopper_crops()
+    gts, rainy = [], []
+    for i in DERAIN_CROPS:
+        gt = jnp.asarray(crops[i])[None]
+        gts.append(np.rint(np.asarray(crops[i]) * 255.0).astype(np.uint8))
+        rainy.append(np.asarray(T.synthetic_rain(gt, jax.random.key(500 + i)))[0])
+    gts, rainy = np.stack(gts), np.stack(rainy)
+    if not np.array_equal(gts.astype(np.float32) / 255.0, np.stack([crops[i] for i in DERAIN_CROPS])):
+        raise AssertionError("hopper crops are not k / 255 in float32")
+    os.makedirs(os.path.dirname(DERAIN_FILE), exist_ok=True)
+    np.savez_compressed(DERAIN_FILE, crop_idx=np.asarray(DERAIN_CROPS), gt=gts, rainy=rainy)
+    return T, gts.astype(np.float32) / 255.0, rainy
+
+
+def zoo():
+    """The zoo phase's solves (see chip_smoke.py::phase_zoo) and the pinned
+    values of tests/test_torch_zoo_golden.py."""
+    import time
+
+    from dprox_tpu.proxfn.pnp.prior import get_denoiser
+
+    out, seconds = {}, {}
+    img, psf, b = observation(False)
+    r48, s48 = dp.log_descent(80, 30, 48)
+    r24, s24 = dp.log_descent(80, 25, 24)
+    data = lambda x: dp.sum_squares(dp.conv(x, psf) - jnp.asarray(b))  # noqa: E731
+    t0 = time.time()
+    out["tiny_drunet_color_tv"] = metrics.psnr(solve(
+        lambda x: [data(x), dp.deep_prior(x, "tiny_drunet_color_tv")], "admm", b, max_iter=48,
+        rhos=r48, lams=s48), img)
+    seconds["tiny_drunet_color_tv"] = time.time() - t0
+    # the CPU golden: the same problem on the 128^2 crop, 24 iterations
+    img128 = img[..., :128, :128]
+    b128 = blur64(img128, psf)
+    out["tiny_drunet_color_tv_128"] = metrics.psnr(solve(
+        lambda x: [dp.sum_squares(dp.conv(x, psf) - jnp.asarray(b128)),
+                   dp.deep_prior(x, "tiny_drunet_color_tv")], "admm", b128, max_iter=24,
+        rhos=r24, lams=s24), img128)
+    t0 = time.time()
+    out["ensemble_tv_x8"] = metrics.psnr(solve(
+        lambda x: [data(x), dp.deep_prior(x, "ensemble_tv", x8=True)], "admm", b, max_iter=24,
+        rhos=r24, lams=s24), img)
+    seconds["ensemble_tv_x8"] = time.time() - t0
+
+    gt, srf = synthetic_hsi()
+    for task, prior in HSI_GRID:
+        t0 = time.time()
+        out[f"hsi_{task}_{prior}"] = hsi_task(task, prior, gt, srf)
+        seconds[f"hsi_{task}"] = time.time() - t0
+    noisy_cube = gt + 0.03 * np.random.RandomState(3).randn(*gt.shape).astype(np.float32)
+    hwc = lambda a: np.transpose(np.asarray(a)[0], (1, 2, 0))  # noqa: E731
+    for kind in ("tiny_grunet", "mid_grunet"):
+        den = get_denoiser(kind)
+        out[f"denoise_{kind}"] = metrics.mpsnr(hwc(den.denoise(jnp.asarray(noisy_cube), 0.03)),
+                                                hwc(gt))
+
+    T, gts, rainy = derain_crops()
+    from flax import serialization
+
+    solver, params = T.build()
+    with open(os.path.join(ROOT, "weights", "derain_joint.msgpack"), "rb") as f:
+        params = serialization.from_bytes(params, f.read())
+    for i, gt_i, r in zip(DERAIN_CROPS, gts, rainy):
+        t0 = time.time()
+        got = T.solve(solver, params, jnp.asarray(r)[None])
+        out[f"derain_{i}"] = {"rainy": metrics.psnr(r[None], gt_i[None]),
+                              "derained": metrics.psnr(np.clip(np.asarray(got), 0, 1), gt_i[None])}
+        seconds[f"derain_{i}"] = time.time() - t0
+    out["seconds"] = seconds
+    return out
+
+
 def solve(fns_of, method, b, **kw):
     x = dp.Variable()
     return np.asarray(dp.compile(fns_of(x), method).solve(x0=jnp.asarray(b), **kw))
@@ -400,6 +527,9 @@ def solve(fns_of, method, b, **kw):
 def main():
     if sys.argv[1:] == ["special"]:
         print(json.dumps({"special": special(), "cross_task": cross_task_goldens()}, indent=1))
+        return
+    if sys.argv[1:] == ["zoo"]:
+        print(json.dumps({"zoo": zoo()}, indent=1))
         return
     out = {"family": {}, "algos": {}}
     img, psf, b = observation(False)
@@ -439,6 +569,7 @@ def main():
     out["fast"] = fast()
     out["special"] = special()
     out["cross_task"] = cross_task_goldens()
+    out["zoo"] = zoo()
     print(json.dumps(out, indent=1))
 
 

@@ -1146,3 +1146,147 @@ def test_policy_and_tuner_on_cuda_match_cpu(cuda):
     for k in got["cpu"][0]:
         assert float((got["cuda"][0][k] - got["cpu"][0][k]).abs().max()) <= 1e-4
     assert float((got["cuda"][1] - got["cpu"][1]).abs().max()) <= 1e-4
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _zoo_case(name):
+    """(denoiser, input) of one zoo model at a small size."""
+    from dprox_tpu_torch.proxfn.pnp import FFDNet3DDenoiser, get_denoiser
+
+    rng = np.random.RandomState(31)
+    rgb = rng.rand(1, 3, 64, 64).astype(np.float32)
+    cube = rng.rand(1, 8, 32, 32).astype(np.float32)
+    gray = rng.rand(1, 2, 48, 40).astype(np.float32)
+    return {"tiny_drunet_color": (get_denoiser("tiny_drunet_color"), rgb),
+            "tiny_drunet_color_quadrants": (get_denoiser("tiny_drunet_color"),
+                                            rng.rand(1, 3, 288, 320).astype(np.float32)),
+            "ensemble_tv": (get_denoiser("ensemble_tv"), rgb),
+            "ircnn": (get_denoiser("ircnn"), gray), "unet": (get_denoiser("unet"), gray),
+            "tiny_grunet": (get_denoiser("tiny_grunet"), cube),
+            "mid_grunet_tv": (get_denoiser("mid_grunet_tv"), cube),
+            "grunet_tv_2d": (get_denoiser("grunet_tv"), cube),
+            "qrnn3d": (get_denoiser("qrnn3d"), cube),
+            "ffdnet3d": (FFDNet3DDenoiser(in_nc=9, out_nc=8), cube)}[name]
+
+
+@pytest.mark.parametrize("name", ["tiny_drunet_color", "tiny_drunet_color_quadrants",
+                                  "ensemble_tv", "ircnn", "unet", "tiny_grunet",
+                                  "mid_grunet_tv", "grunet_tv_2d", "qrnn3d", "ffdnet3d"])
+def test_zoo_denoiser_on_cuda_matches_cpu(cuda, name):
+    """Each new denoiser on the card against the same call on the CPU
+    (cuDNN against the CPU's convolutions, TF32 off: 1e-4 of the largest
+    output); the 2-D TV branch of grunet_tv launches the TV kernel once on
+    [B * Bands, H, W]."""
+    import copy
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # kinds without shipped weights warn
+        den, x = _zoo_case(name)
+    sigma = torch.tensor([0.05])
+    with torch.no_grad():
+        ref = den.denoise(torch.from_numpy(x), sigma)
+        kernels.reset_launches()
+        got = copy.deepcopy(den).to(cuda).denoise(torch.from_numpy(x).to(cuda), sigma.to(cuda))
+    launches = kernels.launch_counts()
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    tv = {"ensemble_tv": 1, "grunet_tv_2d": 1}.get(name, 0)
+    assert launches == dict.fromkeys(launches, 0) | ({"tv_denoise_chw": tv} if tv else {})
+
+
+@pytest.mark.parametrize("name", ["optics_unet", "patch_nlm", "dgu"])
+def test_zoo_model_on_cuda_matches_cpu(cuda, name):
+    """OpticsUNet, non-local means and the DGUNet's three stages on the
+    card against the CPU (1e-4 of the largest output)."""
+    import copy
+
+    from dprox_tpu_torch.models import DGUDenoiser, OpticsUNet
+    from dprox_tpu_torch.proxfn.nlm import nlm_denoise
+
+    x = torch.from_numpy(np.random.RandomState(34).rand(1, 3, 40, 48).astype(np.float32))
+    torch.manual_seed(0)
+    if name == "patch_nlm":
+        def run(v):
+            return nlm_denoise(v, torch.tensor([0.05], device=v.device))
+    else:
+        net = (OpticsUNet() if name == "optics_unet" else DGUDenoiser()).eval()
+        if name == "dgu":  # off the zero initialization of the tail and SAM's image branch
+            for w in (net.tail.weight, net.sam12.conv2.weight, net.basic.sam23.conv2.weight):
+                torch.nn.init.normal_(w, std=0.05)
+        nets = {"cpu": net, "cuda": copy.deepcopy(net).to(cuda)}
+
+        def run(v):
+            return nets[v.device.type](v)
+    with torch.no_grad():
+        ref, got = run(x), run(x.to(cuda)).cpu()
+    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_ircnn_set_selection_reads_nothing_to_the_host(cuda):
+    """IRCNN picks its weight set from sigma on the device: a CUDA graph
+    captures one call (a host read would break the capture), and replaying
+    it after the captured sigma changes runs the other set."""
+    import warnings
+
+    from dprox_tpu_torch.proxfn.pnp import IRCNNDenoiser
+
+    rng = np.random.RandomState(32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        den = IRCNNDenoiser(1)
+    den.stack = {k: v + 0.01 * torch.from_numpy(rng.randn(*v.shape).astype(np.float32))
+                 for k, v in den.stack.items()}  # 25 different sets
+    den.to(cuda)
+    x = torch.from_numpy(rng.rand(1, 1, 32, 32).astype(np.float32)).to(cuda)
+    sigma = torch.tensor([0.05], device=cuda)
+    with torch.no_grad():
+        eager = {s: den.denoise(x, torch.tensor([s], device=cuda)) for s in (0.05, 0.5)}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            den.denoise(x, sigma)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = den.denoise(x, sigma)
+        for s in (0.05, 0.5):
+            sigma.fill_(s)
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager[s])
+    assert not torch.equal(eager[0.05], eager[0.5])
+
+
+def test_derain_training_step_on_cuda_matches_cpu(cuda):
+    """A joint derain training step from the shipped weights on golden crop
+    0 (7 unrolled PGD iterations, DGUNet n_feat 16, the learnable
+    degradation operator): gradients on deg_op, dgu and rhos within 1e-3 of
+    the largest CPU entry of each group (chip_smoke.py's gate; the CPU's own
+    gradients move <= 8e-5 there when the input moves by 1e-6, where the
+    random small setup of tests/test_training.py moves ~1e-3); the carry
+    stays on the card."""
+    cs = _chip_smoke()
+    gt, rainy = cs.derain_crops()[0]
+    solver, _, prior = cs.derain_pipeline(dp, "cpu")
+    params = cs.derain_weights(prior, "cpu")
+    kw = dict(max_iter=7, n_feat=16, scale=8)
+    loss_d, g_d = cs.derain_train_grads(dp, "cuda", params, gt, rainy, **kw)
+    loss_h, g_h = cs.derain_train_grads(dp, "cpu", params, gt, rainy, **kw)
+    assert abs(float(loss_d) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+    assert all(v <= 1e-3 for v in cs._grad_group_rel(g_d, g_h).values())
+    solver, _, prior = cs.derain_pipeline(dp, "cuda")
+    p = cs.derain_weights(prior, "cuda")
+    with torch.no_grad():
+        cs.derain_solve(solver, p, torch.from_numpy(rainy).to(cuda))
+    carry = prior._carry
+    assert carry is not None
+    assert all(t.is_cuda for t in list(carry[0]) + list(carry[1]) + [carry[2]])
