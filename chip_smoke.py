@@ -112,13 +112,29 @@ exits non-zero):
               CUDA graph captures it: no host read), UNet, QRNN3D, FFDNet3D,
               OpticsUNet and patch_nlm against the CPU, with their times and
               device kernels per call.
+14. optic   - the DOE co-design (contrib.optic): the DOE_GOLDEN crops of
+              tests/test_optics.py through the shipped co-designed optic
+              (weights/doe_codesign.msgpack) and through the Fresnel
+              baseline (128x128, sensor at 80 mm, res_ffdnet_color_tv, admm,
+              10 iterations), each PSNR against the JAX package on the CPU,
+              the co-design 6 dB over the baseline, TV and the divide once
+              an iteration; the reference's full-width optic (patch 748,
+              1496x1496 wave grid padded to 2244x2244): its PSF and the
+              PSF's gradient, a 1x3x748x748 reconstruction and a co-design
+              training step (d loss / d height map, log rhos, log sigmas)
+              against the port on the CPU, with ms and peak memory; the
+              hybrid optic's PSF (512, 1536x1536); tests/test_optics.py's
+              bilevel step (nonneg: the fused ADMM update) and the joint
+              optic's step (mosaic(conv_doe), CG x-update: bdot), each
+              against the CPU.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls; phase
 check_complex holds freq_divide's complex-divisor entry against its plain
 version and the TV kernel on a complex tensor's real part.
 
-Then one line {"kernels": [...]}, the nvidia-smi name/power-limit line,
+Then the host seconds each phase took, one line {"kernels": [...]}, the
+nvidia-smi name/power-limit line,
 and last {"ok": true, "device": {...}}. float32 convolutions and matmuls
 run with TF32 off.
 """
@@ -370,6 +386,36 @@ DERAIN_CROPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 # shipped weights (the CPU's own gradients move <= 8e-5 there when the
 # rainy input moves by 1e-6)
 DERAIN_GRAD_REL_TOL = 1e-3
+
+# Phase optic: the DOE co-design of scripts/train_doe.py (build,
+# hand_schedule, make_reconstruct: 128x128 patches on a 256x256 wave grid,
+# the sensor at 80 mm, sum_squares(conv_doe(x, psf)) + res_ffdnet_color_tv,
+# admm, 10 iterations) on the DOE_GOLDEN crops of tests/test_optics.py, with
+# the shipped weights/doe_codesign.msgpack and with the Fresnel baseline.
+# The crops, their jax.random.normal noise draws and the float32 hand
+# schedule's rhos are pinned in tests/data/doe_golden_crops.npz (the card's
+# machine has neither matplotlib, PIL nor JAX); PSNRs of JAX on the CPU from
+#   JAX_PLATFORMS=cpu python scripts/smoke_references.py optic
+DOE_PATCH = 128
+DOE_ITERS = 10
+DOE_SIGMA = 7.65 / 255
+DOE_SENSOR_DISTANCE = 80e-3
+DOE_PRIOR = "res_ffdnet_color_tv"
+DOE_CROPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                         "doe_golden_crops.npz")
+DOE_GOLDEN = {0: (29.22, 20.81), 2: (25.39, 17.64)}  # tests/test_optics.py (0.15 dB there)
+DOE_GAIN_DB = 6.0  # co-designed over Fresnel, as tests/test_optics.py asks
+JAX_CPU_OPTIC = {0: {"codesign": 29.241289371223807, "fresnel": 20.808509204555506},
+                 2: {"codesign": 25.397076659160945, "fresnel": 17.63750955410592}}
+# The full-width optic (DOEModelConfig(): patch 748, 1496^2 wave grid padded
+# to 2244^2, 15 mm) and the hybrid one at its default (512, 1536^2), card
+# against the port on the CPU: the PSF to 1e-4 of its largest value (three
+# float32 FFTs of 2244^2 points in cuFFT and in the CPU's library, each
+# rounding ~eps log2 N = 1.3e-6 of the field's largest value, then squared
+# and block-summed), the loss of the reconstruction and of the training
+# step to 1e-4 relative, the gradients to GRAD_REL_TOL.
+OPTIC_PSF_REL_TOL = 1e-4
+OPTIC_LOSS_REL_TOL = 1e-4
 
 
 def emit(obj):
@@ -3015,6 +3061,346 @@ def phase_zoo(dp, kernels, dev, card):
     return by_path
 
 
+def doe_crops():
+    """{crop index: (ground truth, standard normal noise)}, each [1, 3, 128,
+    128] float32 numpy, and the hand schedule's float32 rhos, from
+    DOE_CROPS."""
+    with np.load(DOE_CROPS) as f:
+        crops = {int(i): (g[None].astype(np.float32) / 255.0, n)
+                 for i, g, n in zip(f["crop_idx"], f["gt"], f["noise"])}
+        return crops, f["hand_rhos"].copy()
+
+
+def doe_build(dp, dev, config=None, prior=DOE_PRIOR):
+    """scripts/train_doe.py::build in the port: (the optic, the solver of
+    sum_squares(conv_doe(x, psf)) + deep_prior(x, prior) by admm); the
+    optic of ``config`` (a DOEModelConfig), by default the 128x128 patch on
+    a 256x256 wave grid with the sensor at 80 mm."""
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model
+
+    if config is None:
+        config = DOEModelConfig(patch_size=DOE_PATCH,
+                                wave_resolution=(2 * DOE_PATCH, 2 * DOE_PATCH),
+                                sample_interval=2e-6 * 1496 / (2 * DOE_PATCH),
+                                sensor_distance=DOE_SENSOR_DISTANCE)
+    x = dp.Variable()
+    data = dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf"), circular=True),
+                          b=dp.Placeholder("y"))
+    solver = dp.compile(data + dp.deep_prior(x, prior), method="admm", device=dev)
+    return build_doe_model(config, device=dev), solver
+
+
+def doe_reconstruct(model, solver, height_map_sqrt, gt, rhos, sigmas, noise):
+    """scripts/train_doe.py::make_reconstruct's recon: the PSF of the height
+    map, the measurement img_psf_conv(gt, psf) + DOE_SIGMA * noise, and
+    DOE_ITERS admm iterations from it (tensors on the solver's device)."""
+    from dprox_tpu_torch.contrib.optic import img_psf_conv
+
+    psf = model.get_psf({"height_map_sqrt": height_map_sqrt})
+    inp = img_psf_conv(gt, psf, circular=True) + DOE_SIGMA * noise
+    return solver.solve(x0=inp, rhos=rhos, lams=sigmas, max_iter=DOE_ITERS,
+                        params={"psf": psf, "y": inp})
+
+
+def doe_train_step(model, solver, tparams, gt, noise):
+    """scripts/train_doe.py:200-211: mean((x - gt)^2) of doe_reconstruct at
+    rhos = exp(log_rhos), sigmas = exp(log_sigmas), and its gradients with
+    respect to tparams ({height_map_sqrt, log_rhos, log_sigmas})."""
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
+    out = doe_reconstruct(model, solver, leaves["height_map_sqrt"], gt,
+                          torch.exp(leaves["log_rhos"]), torch.exp(leaves["log_sigmas"]), noise)
+    loss = torch.mean((out - gt) ** 2)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def bilevel_step(dp, dev, height_map_sqrt, gt, patch=32, max_iter=3):
+    """tests/test_optics.py::test_bilevel_training_step in the port: the PSF
+    of a patch x patch DOE on a 2 patch wave grid, the measurement
+    img_psf_conv(gt, psf), max_iter admm iterations with nonneg (the fused
+    ADMM update) at rho 0.1, lam 0.05; returns the loss mean((x - gt)^2)
+    and its gradient with respect to the height map."""
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model, img_psf_conv
+
+    model = build_doe_model(DOEModelConfig(patch_size=patch, wave_resolution=(2 * patch, 2 * patch),
+                                           sample_interval=2e-6 * 1496 / (2 * patch)), device=dev)
+    x = dp.Variable()
+    solver = dp.compile([dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf"), circular=True),
+                                        b=dp.Placeholder("y")), dp.nonneg(x)], method="admm",
+                        device=dev)
+    h = torch.as_tensor(height_map_sqrt).to(dev).detach().requires_grad_(True)
+    gt = torch.as_tensor(gt).to(dev)
+    psf = model.get_psf({"height_map_sqrt": h})
+    inp = img_psf_conv(gt, psf, circular=True)
+    out = solver.solve(x0=inp, max_iter=max_iter, rhos=0.1, lams=0.05,
+                       params={"psf": psf, "y": inp})
+    loss = torch.mean((out - gt) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, h)[0]
+
+
+def joint_optic_step(dp, dev, height_map_sqrt, rhos, sigmas, gt, noise, patch=64, max_iter=5):
+    """examples/papers/e2e_optics_joint.py's step in the port: the optic of
+    a patch x patch DOE on a 2 patch wave grid (sensor at 15 mm), the
+    measurement mosaic(img_psf_conv(gt, psf)) + 7.65 / 255 * noise, admm with
+    the tv prior and the CG x-update (10 iterations, gradient through the
+    unrolled CG), max_iter iterations; returns the loss mean((x - gt)^2) and
+    its gradients with respect to (height_map_sqrt, rhos, sigmas)."""
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model, img_psf_conv
+    from dprox_tpu_torch.utils.imaging import mosaicing
+
+    config = DOEModelConfig(patch_size=patch, wave_resolution=(2 * patch, 2 * patch),
+                            sample_interval=2e-6 * 1496 / (2 * patch))
+    model = build_doe_model(config, device=dev)
+    x = dp.Variable()
+    data = dp.sum_squares(dp.mosaic(dp.conv_doe(x, dp.Placeholder("psf"),
+                                                circular=config.circular)),
+                          b=dp.Placeholder("y"))
+    solver = dp.compile(data + dp.deep_prior(x, "tv"), method="admm", device=dev,
+                        linear_solve_config=dp.LinearSolveConfig(max_iters=10,
+                                                                 use_analytic_grad=False))
+    leaves = [torch.as_tensor(v).to(dev).detach().requires_grad_(True)
+              for v in (height_map_sqrt, rhos, sigmas)]
+    gt, noise = torch.as_tensor(gt).to(dev), torch.as_tensor(noise).to(dev)
+    psf = model.get_psf({"height_map_sqrt": leaves[0]})
+    inp = mosaicing(img_psf_conv(gt, psf, circular=config.circular)) + 7.65 / 255 * noise
+    out = solver.solve(x0=inp, rhos=leaves[1], lams=leaves[2], max_iter=max_iter,
+                       params={"psf": psf, "y": inp})
+    loss = torch.mean((out - gt) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _peak_mb(fn):
+    """(result of ``fn``, the peak device memory it allocated above what
+    was allocated before it, in MB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase_optic(dp, kernels, dev, card):
+    """The DOE co-design (contrib.optic) on the card: the DOE_GOLDEN crops
+    through the shipped optic and the Fresnel baseline against JAX-CPU; the
+    reference's full-width optic (its PSF and gradient, a 1x3x748x748
+    measure-and-reconstruct and a co-design training step) and the hybrid
+    optic's PSF against the port on the CPU; the bilevel step of
+    tests/test_optics.py (nonneg) and the joint optic's step
+    (mosaic(conv_doe), CG x-update) against the CPU."""
+    from dprox_tpu_torch.contrib.optic import (DOEModelConfig, HybridDOEModelConfig,
+                                               build_baseline_height_map_sqrt, build_doe_model,
+                                               build_hybrid_doe_model)
+    from dprox_tpu_torch.utils.checkpoint import load_doe_codesign
+    from dprox_tpu_torch.utils.imaging import _synthetic_face
+    from dprox_tpu_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    records, by_path, failed = {}, {}, []
+    def rel(got, ref):  # max |card - CPU| / max |CPU|
+        got, ref = got.detach().cpu().double(), ref.detach().double()
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    per_solve = {"tv_denoise_chw": DOE_ITERS, "freq_divide": DOE_ITERS}
+
+    # the golden crops: the shipped optic and the Fresnel baseline
+    model, solver = doe_build(dp, dev)
+    crops, hand_rhos = doe_crops()
+    trained = load_doe_codesign(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             "weights", "doe_codesign.msgpack"), dev)
+    rhos0 = torch.from_numpy(hand_rhos).to(dev)
+    sigmas0 = dp.log_descent(80, 30, DOE_ITERS)[1].to(dev)
+    optics = {"codesign": (trained["height_map_sqrt"], trained["rhos"], trained["sigmas"]),
+              "fresnel": (torch.from_numpy(build_baseline_height_map_sqrt(model)).to(dev),
+                          rhos0, sigmas0)}
+    gold = {}
+    for i, (g, n) in crops.items():
+        gt, noise = torch.from_numpy(g).to(dev), torch.from_numpy(n).to(dev)
+        rec = {}
+        for name, (hms, rhos, sigmas) in optics.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with torch.no_grad():
+                out = doe_reconstruct(model, solver, hms, gt, rhos, sigmas, noise)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            got = psnr(torch.clamp(out, 0, 1).cpu(), torch.from_numpy(g))
+            ref = JAX_CPU_OPTIC[i][name]
+            rec[name] = {"psnr_x": got, "jax_cpu_psnr_x": ref, "psnr_gap_db": got - ref,
+                         "golden_db": DOE_GOLDEN[i][name == "fresnel"], "launches": launches}
+            by_path[f"optic_{name}_{i}"] = launches
+            if not (abs(got - ref) <= PSNR_TOL_DB and launches == dict.fromkeys(launches, 0)
+                    | per_solve):
+                failed.append(f"DOE crop {i} {name}: {rec[name]}")
+        rec["gain_db"] = rec["codesign"]["psnr_x"] - rec["fresnel"]["psnr_x"]
+        if not rec["gain_db"] >= DOE_GAIN_DB:
+            failed.append(f"DOE crop {i}: co-design {rec['gain_db']} dB over Fresnel "
+                          f"< {DOE_GAIN_DB}")
+        hms, rhos, sigmas = optics["codesign"]
+        with torch.no_grad():
+            rec["solve_ms"] = _best_ms(lambda: doe_reconstruct(model, solver, hms, gt, rhos,
+                                                               sigmas, noise), 5)
+        gold[i] = rec
+    records["golden"] = gold
+    del model, solver
+
+    # the reference's full-width optic: its PSF and the PSF's gradient
+    full = DOEModelConfig()
+    fmodel, fsolver = doe_build(dp, dev, config=full)
+    cmodel, csolver = doe_build(dp, "cpu", config=full)
+    h0 = cmodel.init_params()["height_map_sqrt"]
+    side, wave = full.patch_size, full.wave_resolution[0]
+    w = torch.from_numpy(np.random.RandomState(31).rand(1, 3, side, side).astype(np.float32))
+    hd, wd = h0.to(dev), w.to(dev)
+
+    def psf_and_grad(m, h, wt):
+        h = h.detach().clone().requires_grad_(True)
+        psf = m.get_psf({"height_map_sqrt": h})
+        return psf.detach(), torch.autograd.grad((psf * wt).sum(), h)[0]
+
+    (psf_d, grad_d), peak_mb = _peak_mb(lambda: psf_and_grad(fmodel, hd, wd))
+    psf_c, grad_c = psf_and_grad(cmodel, h0, w)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: fmodel.get_psf({"height_map_sqrt": hd}), 10, 3, graph=False)
+    psf_rec = {"shape": list(psf_d.shape), "padded_field": [1, 3] + [wave + 2 * (wave // 4)] * 2,
+               "psf_rel_err": rel(psf_d, psf_c), "psf_limit": OPTIC_PSF_REL_TOL,
+               "grad_rel_err": rel(grad_d, grad_c), "grad_limit": GRAD_REL_TOL,
+               "psf_sum": float(psf_d.sum()), "forward_ms": fwd_ms,
+               "forward_backward_ms": time_ms(lambda: psf_and_grad(fmodel, hd, wd), 10, 3,
+                                              graph=False),
+               "forward_backward_peak_mb": peak_mb}
+    with torch.no_grad():
+        psf_rec["forward_peak_mb"] = _peak_mb(lambda: fmodel.get_psf({"height_map_sqrt": hd}))[1]
+    records["full_psf"] = psf_rec
+    if not (psf_rec["psf_rel_err"] <= OPTIC_PSF_REL_TOL and psf_rec["grad_rel_err"] <= GRAD_REL_TOL
+            and abs(psf_rec["psf_sum"] - 1.0) <= 1e-4):
+        failed.append(f"full-width PSF: {psf_rec}")
+    del psf_d, grad_d, psf_c, grad_c, w, wd
+
+    # a full-width measure-and-reconstruct and a co-design training step
+    gt_np = np.ascontiguousarray(_synthetic_face(side, side).transpose(2, 0, 1)[None])
+    noise_np = np.random.RandomState(32).randn(1, 3, side, side).astype(np.float32)
+    gt_c, noise_c = torch.from_numpy(gt_np), torch.from_numpy(noise_np)
+    gt_d, noise_d = gt_c.to(dev), noise_c.to(dev)
+    with torch.no_grad():
+        kernels.reset_launches()
+        out_d = doe_reconstruct(fmodel, fsolver, hd, gt_d, rhos0, sigmas0, noise_d)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        out_c = doe_reconstruct(cmodel, csolver, h0, gt_c, rhos0.cpu(), sigmas0.cpu(), noise_c)
+        recon_ms = _best_ms(lambda: doe_reconstruct(fmodel, fsolver, hd, gt_d, rhos0, sigmas0,
+                                                    noise_d), 3)
+    by_path["optic_full_reconstruct"] = launches
+    loss_d, loss_c = float(torch.mean((out_d - gt_d) ** 2)), float(torch.mean((out_c - gt_c) ** 2))
+    p_d = psnr(torch.clamp(out_d, 0, 1).cpu(), gt_c)
+    p_c = psnr(torch.clamp(out_c, 0, 1), gt_c)
+    solve_rec = {"loss_card": loss_d, "loss_cpu": loss_c,
+                 "loss_rel_err": abs(loss_d - loss_c) / loss_c,
+                 "psnr_card": p_d, "psnr_cpu": p_c, "psnr_gap_db": p_d - p_c,
+                 "max_abs_err": float((out_d.cpu() - out_c).abs().max()), "launches": launches,
+                 "solve_ms": recon_ms}
+    if not (solve_rec["loss_rel_err"] <= OPTIC_LOSS_REL_TOL and abs(p_d - p_c) <= PSNR_TOL_DB
+            and launches == dict.fromkeys(launches, 0) | per_solve):
+        failed.append(f"full-width reconstruction: {solve_rec}")
+    records["full_reconstruct"] = solve_rec
+    del out_d, out_c
+    tparams = {"height_map_sqrt": h0, "log_rhos": torch.log(rhos0.cpu()),
+               "log_sigmas": torch.log(sigmas0.cpu())}
+    tparams_d = {k: v.to(dev) for k, v in tparams.items()}
+    kernels.reset_launches()
+    (step_d, peak_mb) = _peak_mb(lambda: doe_train_step(fmodel, fsolver, tparams_d, gt_d, noise_d))
+    launches = kernels.launch_counts()
+    step_c = doe_train_step(cmodel, csolver, tparams, gt_c, noise_c)
+    by_path["optic_full_train_step"] = launches
+    step_rec = {"loss_card": float(step_d[0]), "loss_cpu": float(step_c[0]),
+                "loss_rel_err": abs(float(step_d[0]) - float(step_c[0])) / float(step_c[0]),
+                "grad_rel_err": {k: rel(step_d[1][k], step_c[1][k]) for k in tparams},
+                "grad_limit": GRAD_REL_TOL, "launches": launches, "peak_mb": peak_mb,
+                "step_ms": _best_ms(lambda: doe_train_step(fmodel, fsolver, tparams_d, gt_d,
+                                                           noise_d), 3)}
+    if not (step_rec["loss_rel_err"] <= OPTIC_LOSS_REL_TOL
+            and all(v <= GRAD_REL_TOL for v in step_rec["grad_rel_err"].values())
+            and launches == dict.fromkeys(launches, 0) | per_solve):
+        failed.append(f"full-width training step: {step_rec}")
+    records["full_train_step"] = step_rec
+    del fmodel, fsolver, cmodel, csolver, step_d, step_c
+
+    # the hybrid optic's PSF at its default configuration
+    hcfg = HybridDOEModelConfig()
+    hmodel, hcpu = build_hybrid_doe_model(hcfg, device=dev), build_hybrid_doe_model(hcfg, "cpu")
+    hh = hcpu.init_params()
+    with torch.no_grad():
+        hpsf_c = hcpu.get_psf(hh)
+        hh_d = {"height_map_sqrt": hh["height_map_sqrt"].to(dev)}
+        hpsf_d, hpeak = _peak_mb(lambda: hmodel.get_psf(hh_d))
+        records["hybrid_psf"] = {
+            "config": f"patch {hcfg.patch_size}, wave {hcfg.wave_resolution[0]}^2, "
+                      f"{hcfg.aperture_type}", "psf_rel_err": rel(hpsf_d, hpsf_c),
+            "limit": OPTIC_PSF_REL_TOL, "forward_ms": time_ms(lambda: hmodel.get_psf(hh_d), 10, 3,
+                                                              graph=False),
+            "forward_peak_mb": hpeak}
+    if not records["hybrid_psf"]["psf_rel_err"] <= OPTIC_PSF_REL_TOL:
+        failed.append(f"hybrid PSF: {records['hybrid_psf']}")
+    del hmodel, hcpu, hpsf_c, hpsf_d
+
+    # the bilevel step of tests/test_optics.py: nonneg through the fused ADMM update
+    bgt = np.random.RandomState(0).rand(1, 3, 32, 32).astype(np.float32)
+    bh0 = build_doe_model(DOEModelConfig(patch_size=32, wave_resolution=(64, 64),
+                                         sample_interval=2e-6 * 1496 / 64),
+                          "cpu").init_params()["height_map_sqrt"]
+    kernels.reset_launches()
+    bloss_d, bgrad_d = bilevel_step(dp, dev, bh0, bgt)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    bloss_c, bgrad_c = bilevel_step(dp, "cpu", bh0, bgt)
+    by_path["optic_bilevel_step"] = launches
+    bilevel = {"loss_card": float(bloss_d), "loss_cpu": float(bloss_c),
+               "loss_rel_err": abs(float(bloss_d) - float(bloss_c)) / float(bloss_c),
+               "grad_rel_err": rel(bgrad_d, bgrad_c), "grad_limit": GRAD_REL_TOL,
+               "launches": launches}
+    want = dict.fromkeys(launches, 0) | {"freq_divide": 3, "fused_admm_update": 3}
+    if not (bilevel["loss_rel_err"] <= OPTIC_LOSS_REL_TOL
+            and bilevel["grad_rel_err"] <= GRAD_REL_TOL and launches == want):
+        failed.append(f"bilevel step: {bilevel}")
+    records["bilevel_step"] = bilevel
+
+    # the joint optic: mosaic(conv_doe), tv prior, CG x-update (bdot), patch 64
+    patch, n = 64, 5
+    jgt = np.ascontiguousarray(_synthetic_face(512, 512)[:patch, :patch].transpose(2, 0, 1)[None])
+    jnoise = np.random.RandomState(33).randn(1, 3, patch, patch).astype(np.float32)
+    jr, js = dp.log_descent(49, 7.65, n, sigma=7.65 / 255)
+    jcfg = DOEModelConfig(patch_size=patch, wave_resolution=(2 * patch, 2 * patch),
+                          sample_interval=2e-6 * 1496 / (2 * patch))
+    jh0 = build_doe_model(jcfg, "cpu").init_params()["height_map_sqrt"]
+    kernels.reset_launches()
+    jloss_d, jgrad_d = joint_optic_step(dp, dev, jh0, jr, js, jgt, jnoise, patch, n)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    jloss_c, jgrad_c = joint_optic_step(dp, "cpu", jh0, jr, js, jgt, jnoise, patch, n)
+    by_path["optic_joint_step"] = launches
+    joint = {"patch": patch, "iterations": n, "loss_card": float(jloss_d),
+             "loss_cpu": float(jloss_c),
+             "loss_rel_err": abs(float(jloss_d) - float(jloss_c)) / float(jloss_c),
+             "grad_rel_err": {k: rel(a, b) for k, a, b in zip(("height_map_sqrt", "rhos", "sigmas"),
+                                                               jgrad_d, jgrad_c)},
+             "grad_limit": GRAD_REL_TOL, "launches": launches,
+             "step_ms": _best_ms(lambda: joint_optic_step(dp, dev, jh0, jr, js, jgt, jnoise,
+                                                          patch, n), 3)}
+    if not (joint["loss_rel_err"] <= OPTIC_LOSS_REL_TOL
+            and all(v <= GRAD_REL_TOL for v in joint["grad_rel_err"].values())
+            and launches["bdot"] > 0 and launches["tv_denoise_chw"] == n):
+        failed.append(f"joint optic step: {joint}")
+    records["joint_step"] = joint
+    emit({"phase": "optic", "config": "DOE_GOLDEN crops 1x3x128x128 (wave 256^2, sensor 80 mm, "
+          "res_ffdnet_color_tv, admm, 10 it.); full width DOEModelConfig() (patch 748, wave "
+          "1496^2 padded to 2244^2): PSF, 1x3x748x748 reconstruction and training step; hybrid "
+          "(512, 1536^2) PSF; bilevel step patch 32, nonneg, 3 it.; joint optic patch 64, 5 it.",
+          "psnr_tolerance_db": PSNR_TOL_DB,
+          "seconds": time.perf_counter() - t_phase, "records": records, "card": card})
+    if failed:
+        raise AssertionError("optic: " + "; ".join(failed))
+    return by_path
+
+
 def _synthetic_face32():
     """The synthetic face's 32x32 crop, [1, 3, 32, 32] float32 numpy."""
     from dprox_tpu_torch.utils.imaging import _synthetic_face
@@ -3028,7 +3414,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    import dprox_tpu_torch as dp
+    try:
+        import dprox_tpu_torch as dp
+    except ModuleNotFoundError as e:  # the script without the repository beside it
+        print(f"chip_smoke: {e}; run it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 1
     from dprox_tpu_torch.ops import kernels
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3039,24 +3430,39 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds since the last lap, by phase
+        now = time.perf_counter()
+        seconds[name], t0[0] = now - t0[0], now
+
     phase_build(kernels)
+    lap("build")
     measured = (phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
                 + phase_check_bsr(kernels, dev) + phase_check_complex(kernels, dev))
     phase_kernels_per_call(kernels, dev)
+    lap("check")
     solver, b, launches = phase_main(dp, kernels, dev)
     flagship_its = phase_marginal(dp, solver, b, card)
     del solver, b
+    lap("main")
     by_path = {"flagship": launches, "nonneg": phase_nonneg(dp, kernels, dev, card)}
     joint = phase_joint(dp, kernels, dev, card)
     by_path.update(joint_cg_pallas=joint["cg_pallas"], joint_default_pcg=joint["default_pcg"])
     phase_grad(dp, kernels, dev, card)
+    lap("nonneg_joint_grad")
     by_path["lp"] = phase_lp(kernels, dev, card)
     phase_lp_consensus(kernels, dev, card)
-    by_path.update(phase_family(dp, kernels, dev, card, flagship_its))
-    by_path.update(phase_algos(dp, kernels, dev, card))
-    by_path.update(phase_fast(dp, kernels, dev, card))
-    by_path.update(phase_special(dp, kernels, dev, card))
-    by_path.update(phase_zoo(dp, kernels, dev, card))
+    lap("lp")
+    for name, phase in (("family", lambda: phase_family(dp, kernels, dev, card, flagship_its)),
+                        ("algos", lambda: phase_algos(dp, kernels, dev, card)),
+                        ("fast", lambda: phase_fast(dp, kernels, dev, card)),
+                        ("special", lambda: phase_special(dp, kernels, dev, card)),
+                        ("zoo", lambda: phase_zoo(dp, kernels, dev, card)),
+                        ("optic", lambda: phase_optic(dp, kernels, dev, card))):
+        by_path.update(phase())
+        lap(name)
+    emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values())})
     # each kernel's count on the main-path solve that is its own; bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
     # rows (BSRMat.route), and phase check_bsr holds the tile kernel; nor

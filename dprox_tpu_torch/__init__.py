@@ -53,4 +53,9 @@ from .linop import (BlackBox, Constant, LinOp, LinOpFactory, Placeholder, Variab
 from .proxfn import (ProxFn, compress_sensing, csmri, deep_prior, ext_sum_squares, get_denoiser,
                      least_squares, misr, nonneg, norm1, norm2, patch_nlm, phase_ret, sisr, spi,
                      sum_squares, unrolled_prior, weighted_sum_squares)
-from .utils.misc import to_tensor as tensor
+from .utils.hub import CACHE_DIRS
+from .utils.misc import array, to_tensor as tensor
+
+# the first cache directory that ``utils.hub`` searches
+CACHE_DIR = next((d for d in CACHE_DIRS if d), "~/.cache/dprox")
+__cache_dir__ = CACHE_DIR

@@ -3,8 +3,8 @@
 ``compile`` partitions a proxfn objective and instantiates the chosen
 solver on a device; ``specialize`` wraps it for unrolling, DEQ or RL
 tuning; ``train`` runs the supervised loop (or the tuner's own);
-``optimize`` runs the absorb pass. ``visualize`` comes with ROADMAP
-Queue 1 item 9.
+``optimize`` runs the absorb pass; ``visualize`` renders the proxfns'
+linop trees.
 """
 from __future__ import annotations
 
@@ -68,4 +68,12 @@ def train(solver=None, step_fn=None, dataset=None, **kwargs):
 
 
 def visualize(prox_fns=None, filename=None):
-    raise NotImplementedError("linop visualization comes with ROADMAP Queue 1 item 9")
+    """The dot source of each proxfn's linop tree (``linop.visualize``),
+    separated by blank lines; None without proxfns."""
+    from ..linop.visualize import visualize as _visualize
+
+    if prox_fns is None:
+        return None
+    if not isinstance(prox_fns, list):
+        prox_fns = [prox_fns]
+    return "\n\n".join(_visualize(fn.linop, filename) for fn in prox_fns)

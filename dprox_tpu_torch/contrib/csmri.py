@@ -83,10 +83,8 @@ def generate_sample(size: int = 128, num_lines: int = 40, sigma: float = 0.0,
 
 def sample(name: Optional[str] = None, size: int = 128):
     """One CS-MRI problem: the reference's real sample where
-    ``sample_reference`` finds it, else the synthetic phantom. Until the
-    hub's offline search path is ported (ROADMAP Queue 1 item 9)
-    ``sample_reference`` finds nothing, so this is the phantom, as the
-    JAX package gives offline without the assets."""
+    ``sample_reference`` finds its assets in the hub caches, else the
+    synthetic phantom."""
     real = sample_reference(name or "Bust.jpg")
     if real is not None:
         return real
@@ -94,12 +92,29 @@ def sample(name: Optional[str] = None, size: int = 128):
 
 
 def sample_reference(name: str = "Bust.jpg"):
-    """The reference's real CS-MRI sample (radial_128_2.mat and a
-    Medical_128 image, from the hub cache). Returns None: the hub's offline
-    search path that finds them is not ported yet (ROADMAP Queue 1
-    item 9)."""
-    del name
-    return None
+    """The reference's real CS-MRI sample: the radial mask
+    (data/csmri/masks/radial_128_2.mat) applied to the centred orthonormal
+    spectrum of a Medical_128 image (data/csmri/Medical_128/<name>), the
+    zero-filled adjoint as x0; the dict of ``generate_sample``, or None
+    when either asset is not in the hub caches (``utils.hub``)."""
+    from ..utils import hub
+
+    mask_path = hub.load_path("data/csmri/masks/radial_128_2.mat",
+                              repo_type="datasets", raise_on_miss=False)
+    img_path = hub.load_path(f"data/csmri/Medical_128/{name}",
+                             repo_type="datasets", raise_on_miss=False)
+    if mask_path is None or img_path is None:
+        return None
+    from PIL import Image
+    from scipy.io import loadmat
+
+    mask = loadmat(mask_path)["mask"].astype(bool)
+    target = np.asarray(Image.open(img_path).convert("L"), np.float32) / 255.0
+    y0 = _fft2c(target[None, None].astype(np.complex64))
+    y0 = np.where(mask[None, None], y0, 0).astype(np.complex64)
+    ATy0 = _ifft2c(y0).astype(np.complex64)
+    return {"y0": y0, "x0": ATy0, "ATy0": ATy0, "gt": target[None, None],
+            "mask": mask[None, None], "params": {"y": y0, "mask": mask[None, None]}}
 
 
 def load_data(path: str):

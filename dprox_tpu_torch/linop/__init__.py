@@ -4,6 +4,7 @@ from .ops import (BlackBox, LinOpFactory, conv, conv_doe, grad, mosaic, mul_colo
                   mul_elementwise)
 from .constraints import matmul, equality, less
 from .evaluate import eval, adjoint, gram, validate, est_norm
+from .visualize import to_dot, to_text, visualize
 from ..utils.misc import resolve_device
 
 # Compatibility names of the JAX package (dprox_tpu/linop/__init__.py).

@@ -104,7 +104,10 @@ class conv_doe(LinOp):
         if isinstance(psf, Placeholder):
             self._psf_ph, self._psf_val = psf, None
         else:
-            self._psf_ph, self._psf_val = None, torch.as_tensor(np.asarray(psf))
+            self._psf_ph = None
+            if not isinstance(psf, torch.Tensor):
+                psf = np.asarray(psf)
+            self._psf_val = torch.as_tensor(psf)
             if self._psf_val.ndim == 3:
                 self._psf_val = self._psf_val[None]
 

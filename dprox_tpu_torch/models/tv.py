@@ -1,9 +1,10 @@
 """TV denoising by dual ascent on [..., H, W] stacks (bands leading).
 
-Counterpart of dprox_tpu/models/tv.py::tv_denoising_chw and
-tv_denoising3d_chw, in the same operation order. The 2-D function is the
-plain version of the fused TV kernel (ops/kernels.py::tv_denoise_chw),
-which callers use instead; 3-D TV has no kernel.
+Counterpart of dprox_tpu/models/tv.py (``tv_denoising_chw``,
+``tv_denoising3d_chw`` and the [H, W, B] forms ``tv_denoising``,
+``tv_denoising3d``), in the same operation order. The 2-D CHW function is
+the plain version of the fused TV kernel (ops/kernels.py::tv_denoise_chw),
+which callers use instead, as ``tv_denoising`` does; 3-D TV has no kernel.
 """
 from __future__ import annotations
 
@@ -81,3 +82,21 @@ def tv_denoising3d_chw(y0: torch.Tensor, lam, iterations: int = 100) -> torch.Te
         zv = _clip(zv + (1.0 / alpha) * _dv_w(x0), t)
         zt = _clip(zt + (1.0 / alpha) * _db_w(x0), t)
     return x0
+
+
+def tv_denoising(y0: torch.Tensor, lam, iterations: int = 100) -> torch.Tensor:
+    """2-D TV per band on [H, W, B], through ``ops.kernels.tv_denoise_chw``
+    (the TV kernel on a CUDA tensor, which takes at most
+    ``kernels.tv_max_iterations()`` iterations, and raises beyond; the
+    plain version on a CPU tensor); ``lam`` is a float or a tensor of one
+    value."""
+    from ..ops.kernels import tv_denoise_chw
+
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=y0.device).reshape(())
+    out = tv_denoise_chw(y0.permute(2, 0, 1).contiguous(), lam, iterations)
+    return out.permute(1, 2, 0)
+
+
+def tv_denoising3d(y0: torch.Tensor, lam, iterations: int = 100) -> torch.Tensor:
+    """3-D TV with a band-difference term on [H, W, B]."""
+    return tv_denoising3d_chw(y0.permute(2, 0, 1), lam, iterations).permute(1, 2, 0)

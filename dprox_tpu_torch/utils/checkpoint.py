@@ -1,10 +1,12 @@
-"""Read flax msgpack checkpoints without flax or msgpack.
+"""Read and write flax msgpack checkpoints without flax or msgpack.
 
 The shipped ``weights/*.msgpack`` files were written by
 ``flax.serialization.to_bytes``. This module decodes the subset of
 msgpack those files use (maps, strings, binary, arrays, ints, floats,
-nil, bool) plus flax's extension type 1 (ndarray), whose payload is
-itself a msgpack triple ``(shape, dtype_name, raw_bytes)``. The
+nil, bool) plus flax's extension types 1 (ndarray), whose payload is
+itself a msgpack triple ``(shape, dtype_name, raw_bytes)``, 2 (a Python
+complex) and 3 (a numpy scalar); ``save_pytree`` writes the same format,
+so the JAX package's ``load_pytree`` reads what the port saves. The
 converters below carry the JAX package's flax params (from a msgpack, or
 as numpy arrays) into the port's modules: FFDNet (and FFDNet3D), the RL
 tuner's networks, a trained DEQ's params, and the zoo: UNetRes, the conv
@@ -16,13 +18,14 @@ HWIO to OIHW (3-D: DHWIO to OIDHW); a flax ``nn.ConvTranspose`` kernel
 """
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-_EXT_NDARRAY = 1
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
 
 class _Reader:
@@ -95,10 +98,91 @@ class _Reader:
 
     @staticmethod
     def ext(code: int, data: bytes):
-        if code != _EXT_NDARRAY:
+        if code == _EXT_COMPLEX:
+            re, im = _Reader(data).obj()
+            return complex(re, im)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack extension type {code}")
         shape, dtype_name, raw = _Reader(data).obj(raw=True)
-        return np.frombuffer(raw, dtype=np.dtype(dtype_name.decode())).reshape(shape).copy()
+        arr = np.frombuffer(raw, dtype=np.dtype(dtype_name.decode())).reshape(shape).copy()
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def _pack(obj, out: bytearray) -> None:
+    """Append the msgpack encoding of ``obj`` (a nested dict with str keys
+    of arrays, tensors and Python scalars) to ``out``, as flax's
+    ``msgpack_serialize`` writes it."""
+    def sized(n, tags):  # the first (tag, length format) that holds n
+        for tag, fmt in tags:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                out.extend(struct.pack(">B" + fmt, tag, n))
+                return
+        raise ValueError(f"msgpack object of size {n} is too large")
+
+    def ext(code, payload):
+        if len(payload) in (1, 2, 4, 8, 16):
+            out.append(0xD4 + len(payload).bit_length() - 1)
+        else:
+            sized(len(payload), ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")))
+        out.extend(struct.pack(">b", code))
+        out.extend(payload)
+
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        payload = bytearray()
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], payload)
+        ext(_EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR, payload)
+    elif isinstance(obj, dict):
+        if len(obj) <= 15:
+            out.append(0x80 | len(obj))
+        else:
+            sized(len(obj), ((0xDE, "H"), (0xDF, "I")))
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        if len(obj) <= 15:
+            out.append(0x90 | len(obj))
+        else:
+            sized(len(obj), ((0xDC, "H"), (0xDD, "I")))
+        for v in obj:
+            _pack(v, out)
+    elif obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):  # the shortest form, as msgpack writes it
+        if -32 <= obj <= 0x7F:
+            out.extend(struct.pack(">b" if obj < 0 else ">B", obj))
+        else:
+            fmts = "BHIQ" if obj > 0 else "bhiq"
+            for i, fmt in enumerate(fmts):
+                lo, hi = (0, 1 << (8 << i)) if obj > 0 else (-(1 << ((8 << i) - 1)), 0)
+                if lo <= obj < hi:
+                    out.extend(struct.pack(">B" + fmt, (0xCC if obj > 0 else 0xD0) + i, obj))
+                    break
+            else:
+                raise ValueError(f"integer {obj} does not fit in 64 bits")
+    elif isinstance(obj, float):
+        out.extend(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, complex):
+        payload = bytearray()
+        _pack([obj.real, obj.imag], payload)
+        ext(_EXT_COMPLEX, payload)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        if len(data) <= 31:
+            out.append(0xA0 | len(data))
+        else:
+            sized(len(data), ((0xD9, "B"), (0xDA, "H"), (0xDB, "I")))
+        out.extend(data)
+    elif isinstance(obj, (bytes, bytearray)):
+        sized(len(obj), ((0xC4, "B"), (0xC5, "H"), (0xC6, "I")))
+        out.extend(obj)
+    else:
+        raise TypeError(f"cannot serialise a {type(obj).__name__}")
 
 
 def load_flax_msgpack(path: str) -> Dict[str, Any]:
@@ -110,6 +194,65 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
     if reader.pos != len(reader.buf):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     return tree
+
+
+def _state_dict(tree):
+    """flax's state dict of ``tree``: lists and tuples become dicts keyed
+    "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def save_pytree(path: str, tree: Any) -> str:
+    """Write ``tree`` (nested dicts, lists and tuples of tensors, arrays
+    and Python scalars) to ``path`` in flax's msgpack format, which
+    ``load_pytree`` and the JAX package's ``load_pytree`` (without orbax)
+    read; returns "msgpack"."""
+    out = bytearray()
+    _pack(_state_dict(tree), out)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(out)
+    return "msgpack"
+
+
+def _restore(template, state):
+    if template is None:
+        if isinstance(state, dict):
+            return {k: _restore(None, v) for k, v in state.items()}
+        return torch.from_numpy(state) if isinstance(state, np.ndarray) else state
+    if isinstance(template, dict):
+        return {k: _restore(v, state[str(k)]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_restore(v, state[str(i)]) for i, v in enumerate(template))
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(np.asarray(state)).to(template.device, template.dtype)
+    return state
+
+
+def load_pytree(path: str, template: Any = None):
+    """Read a flax msgpack file (``save_pytree``'s, or the JAX package's
+    msgpack ``save_pytree``). Without ``template``: nested dicts of
+    tensors; with one: its structure, each tensor leaf on its device and
+    in its dtype."""
+    return _restore(template, load_flax_msgpack(path))
+
+
+def doe_params_from_flax(tree: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """The DOE co-design params (``weights/doe_codesign.msgpack``, as
+    ``load_flax_msgpack`` returns it, or the JAX package's params as numpy
+    arrays) -> {"height_map_sqrt": [1, 1, R, R], "rhos": [T], "sigmas":
+    [T]} float32 tensors on ``device``, by name."""
+    return {k: torch.as_tensor(np.asarray(tree[k], np.float32)).to(device)
+            for k in ("height_map_sqrt", "rhos", "sigmas")}
+
+
+def load_doe_codesign(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """``doe_params_from_flax`` of the msgpack file at ``path``."""
+    return doe_params_from_flax(load_flax_msgpack(path), device)
 
 
 def ffdnet_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

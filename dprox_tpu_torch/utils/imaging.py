@@ -1,9 +1,11 @@
 """Sample images, PSF generators and the blur degradation.
 
 Counterpart of dprox_tpu/utils/imaging.py (``_synthetic_face``,
-``sample``, ``point_spread_function``, ``blurring``, ``bayer_mask``,
-``mosaicing``, ``downsampling``). Sample data is deterministic numpy; the degradations run
-with torch on the image's device.
+``sample``, ``point_spread_function``, ``blurring``, ``masks_CFA_Bayer``,
+``bayer_mask``, ``mosaicing``, ``downsampling``) and ``resize_cubic``, the
+cubic ``jax.image.resize`` the JAX package calls. Sample data is
+deterministic numpy; the degradations run with torch on the image's
+device.
 """
 from __future__ import annotations
 
@@ -93,12 +95,17 @@ def blurring(img: torch.Tensor, psf: np.ndarray) -> torch.Tensor:
     return out.to(img.dtype)
 
 
+def masks_CFA_Bayer(shape):
+    """RGGB Bayer masks, a tuple of three HxW bool arrays (R, G, B)."""
+    channels = {c: np.zeros(shape) for c in "RGB"}
+    for channel, (y, x) in zip("RGGB", [(0, 0), (0, 1), (1, 0), (1, 1)]):
+        channels[channel][y::2, x::2] = 1
+    return tuple(channels[c].astype(bool) for c in "RGB")
+
+
 def bayer_mask(shape) -> np.ndarray:
     """RGGB Bayer mask as [1,3,H,W] float32."""
-    mask = np.zeros((1, 3) + tuple(shape), np.float32)
-    for channel, (y, x) in zip((0, 1, 1, 2), [(0, 0), (0, 1), (1, 0), (1, 1)]):
-        mask[0, channel, y::2, x::2] = 1
-    return mask
+    return np.stack(masks_CFA_Bayer(shape), axis=0).astype(np.float32)[None]
 
 
 def mosaicing(img: torch.Tensor) -> torch.Tensor:
@@ -110,11 +117,14 @@ def mosaicing(img: torch.Tensor) -> torch.Tensor:
 
 def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     """[n_in, n_out] float32 weights of ``jax.image.resize(method="cubic")``
-    along one axis when it upsamples: the Keys kernel with a = -0.5 at the
-    sample points ``(i + 0.5) n_in / n_out - 0.5``, each column divided by
-    its sum (the border columns lose the taps that fall outside)."""
-    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * (n_in / n_out) - 0.5
+    along one axis: the Keys kernel with a = -0.5 at the sample points
+    ``(i + 0.5) n_in / n_out - 0.5``, stretched by n_in / n_out when the
+    axis shrinks (the antialiased kernel), each column divided by its sum
+    (the border columns lose the taps that fall outside)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     x = torch.abs(sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None])
+    x = x / max(inv_scale, 1.0)
     w = ((1.5 * x - 2.5) * x) * x + 1.0
     w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
     w = torch.where(x >= 2.0, torch.zeros_like(w), w)
@@ -124,6 +134,18 @@ def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
     return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_cubic(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method="cubic")``: each axis whose size
+    changes is resampled separably with ``_cubic_weights`` (up or down)."""
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {tuple(shape)} has not the {x.ndim} axes of the input")
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            w = _cubic_weights(n_in, int(n_out), x.device).to(x.dtype)
+            x = torch.movedim(torch.movedim(x, axis, -1) @ w, -1, axis)
+    return x
 
 
 def downsampling(img: torch.Tensor, psf: np.ndarray, sf: int):

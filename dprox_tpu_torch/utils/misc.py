@@ -92,3 +92,28 @@ def expand_to_bchw(r: torch.Tensor) -> torch.Tensor:
     if r.ndim == 1:
         return r.reshape(r.shape[0], 1, 1, 1)
     return r
+
+
+def seed_everything(seed: int) -> torch.Generator:
+    """Seed Python's, numpy's and torch's generators (every device's);
+    returns torch's default generator, where the JAX package returns a
+    key."""
+    import random
+
+    np.random.seed(seed)
+    random.seed(seed)
+    return torch.manual_seed(seed)
+
+
+def outlier_correct(arr: np.ndarray, p: float = 0.01) -> np.ndarray:
+    """Clip ``arr`` to its [p, 100 - p] percentiles."""
+    lo, hi = np.percentile(arr, [p, 100 - p])
+    return np.clip(arr, lo, hi)
+
+
+def crop_center_region(arr: np.ndarray, size: int = 150) -> np.ndarray:
+    """The central ``size`` x ``size`` region of an [H, W, ...] array."""
+    h, w = arr.shape[:2]
+    r0 = (h - size) // 2
+    c0 = (w - size) // 2
+    return arr[r0:r0 + size, c0:c0 + size]

@@ -31,6 +31,15 @@ policies (their samples need sklearn's photographs).
 Only the special phase (about 2 minutes) and the cross-task goldens:
     JAX_PLATFORMS=cpu python scripts/smoke_references.py special
 
+Only the optic phase's values (key "optic", JAX_CPU_OPTIC in chip_smoke.py
+and the pinned values of tests/test_torch_optic.py): the DOE_GOLDEN crops of
+tests/test_optics.py reconstructed through the shipped co-designed optic
+(weights/doe_codesign.msgpack) and the Fresnel baseline, as
+scripts/train_doe.py's make_reconstruct does, which also writes the crops
+(uint8), their two jax.random.normal noise draws and the float32
+jnp.geomspace hand schedule to tests/data/doe_golden_crops.npz (~1 min):
+    JAX_PLATFORMS=cpu python scripts/smoke_references.py optic
+
 Only the zoo phase's values (key "zoo", JAX_CPU_ZOO in chip_smoke.py and
 the pinned values of tests/test_torch_zoo_golden.py), which also writes the
 derain golden crops, ground truth and rainy input, that the port reads
@@ -519,6 +528,55 @@ def zoo():
     return out
 
 
+DOE_CROPS = (0, 2)  # tests/test_optics.py::DOE_GOLDEN
+DOE_FILE = os.path.join(ROOT, "tests", "data", "doe_golden_crops.npz")
+
+
+def optic():
+    """PSNRs of the DOE_GOLDEN crops through the shipped co-designed optic
+    and through the Fresnel baseline (scripts/train_doe.py::evaluate), and
+    the data the port needs to make the same observations, written to
+    DOE_FILE: the crops as uint8, the standard normal draws of
+    jax.random.key(100 + i) and the hand schedule's rhos."""
+    import time
+
+    from flax import serialization
+
+    from dprox_tpu.contrib.optic import build_baseline_height_map_sqrt
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_doe as T
+
+    _, model, solver = T.build()
+    rhos0, sigmas0 = T.hand_schedule()
+    params = {"height_map_sqrt": model.init_params()["height_map_sqrt"], "rhos": rhos0,
+              "sigmas": sigmas0}
+    with open(os.path.join(ROOT, "weights", "doe_codesign.msgpack"), "rb") as f:
+        params = serialization.from_bytes(params, f.read())
+    crops = T.hopper_crops()
+    recon = T.make_reconstruct(model, solver)
+    fresnel = jnp.asarray(build_baseline_height_map_sqrt(model))
+    out, gts, noise = {}, [], []
+    for i in DOE_CROPS:
+        gt = jnp.asarray(crops[i])[None]
+        key = jax.random.key(100 + i)
+        t0 = time.time()
+        out_c = recon(params["height_map_sqrt"], gt, params["rhos"], params["sigmas"], key)
+        out_f = recon(fresnel, gt, rhos0, sigmas0, key)
+        out[f"doe_{i}"] = {
+            "codesign": metrics.psnr(np.clip(np.asarray(out_c), 0, 1), np.asarray(gt)),
+            "fresnel": metrics.psnr(np.clip(np.asarray(out_f), 0, 1), np.asarray(gt)),
+            "seconds": time.time() - t0}
+        gts.append(np.rint(crops[i] * 255.0).astype(np.uint8))
+        noise.append(np.asarray(jax.random.normal(key, gt.shape), np.float32))
+    gts = np.stack(gts)
+    if not np.array_equal(gts.astype(np.float32) / 255.0, np.stack([crops[i] for i in DOE_CROPS])):
+        raise AssertionError("hopper crops are not k / 255 in float32")
+    np.savez_compressed(DOE_FILE, crop_idx=np.asarray(DOE_CROPS), gt=gts, noise=np.stack(noise),
+                        hand_rhos=np.asarray(rhos0, np.float32))
+    return out
+
+
 def solve(fns_of, method, b, **kw):
     x = dp.Variable()
     return np.asarray(dp.compile(fns_of(x), method).solve(x0=jnp.asarray(b), **kw))
@@ -527,6 +585,9 @@ def solve(fns_of, method, b, **kw):
 def main():
     if sys.argv[1:] == ["special"]:
         print(json.dumps({"special": special(), "cross_task": cross_task_goldens()}, indent=1))
+        return
+    if sys.argv[1:] == ["optic"]:
+        print(json.dumps({"optic": optic()}, indent=1))
         return
     if sys.argv[1:] == ["zoo"]:
         print(json.dumps({"zoo": zoo()}, indent=1))
@@ -570,6 +631,7 @@ def main():
     out["special"] = special()
     out["cross_task"] = cross_task_goldens()
     out["zoo"] = zoo()
+    out["optic"] = optic()
     print(json.dumps(out, indent=1))
 
 

@@ -1290,3 +1290,70 @@ def test_derain_training_step_on_cuda_matches_cpu(cuda):
     carry = prior._carry
     assert carry is not None
     assert all(t.is_cuda for t in list(carry[0]) + list(carry[1]) + [carry[2]])
+
+
+@pytest.mark.parametrize("patch,wave,sensor", [(32, 64, 15e-3), (128, 256, 80e-3),
+                                               (748, 1496, 15e-3)])
+def test_optic_psf_and_gradient_on_cuda_match_cpu(cuda, patch, wave, sensor):
+    """contrib.optic's get_psf and d <psf, w> / d height_map_sqrt on the
+    card against the CPU: the tests' optic, the golden path's (sensor at 80
+    mm) and the reference's full width (2244^2 padded fields); the PSF to
+    1e-4 of its largest value (float32 FFTs in two libraries), the
+    gradient to 3e-3 (chip_smoke.py's GRAD_REL_TOL)."""
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model
+
+    cfg = DOEModelConfig(patch_size=patch, wave_resolution=(wave, wave),
+                         sample_interval=2e-6 * 1496 / wave, sensor_distance=sensor)
+    w = torch.from_numpy(np.random.RandomState(0).rand(1, 3, patch, patch).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_doe_model(cfg, device=dev)
+        h = model.init_params()["height_map_sqrt"].requires_grad_(True)
+        psf = model.get_psf({"height_map_sqrt": h})
+        (psf * w.to(dev)).sum().backward()
+        out[str(dev)] = (psf.detach().cpu().double(), h.grad.cpu().double())
+    (pc, gc), (pd, gd) = out["cpu"], out["cuda"]
+    assert float((pd - pc).abs().max() / pc.abs().max()) <= 1e-4
+    assert float((gd - gc).abs().max() / gc.abs().max()) <= 3e-3
+
+
+def test_optic_bilevel_step_launches_the_admm_update_and_matches_cpu(cuda):
+    """tests/test_optics.py's bilevel step (nonneg, 3 admm iterations) on
+    the card: one fused ADMM update and one divide an iteration; the loss
+    to 1e-4 and the height map's gradient to 3e-3 of the CPU's."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model
+
+    gt = np.random.RandomState(0).rand(1, 3, 32, 32).astype(np.float32)
+    h0 = build_doe_model(DOEModelConfig(patch_size=32, wave_resolution=(64, 64),
+                                        sample_interval=2e-6 * 1496 / 64),
+                         "cpu").init_params()["height_map_sqrt"]
+    kernels.reset_launches()
+    loss_d, grad_d = cs.bilevel_step(dp, cuda, h0, gt)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["fused_admm_update"] == 3 and counts["freq_divide"] == 3
+    loss_c, grad_c = cs.bilevel_step(dp, "cpu", h0, gt)
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * float(loss_c)
+    assert float((grad_d.cpu() - grad_c).abs().max() / grad_c.abs().max()) <= 3e-3
+
+
+def test_hwc_tv_denoising_reaches_the_tv_kernel(cuda):
+    """models.tv_denoising ([H, W, B]) launches the TV kernel once and gives
+    the plain version's bits; the 3-D form runs the plain ops on the card."""
+    from dprox_tpu_torch.models import tv_denoising, tv_denoising3d
+    from dprox_tpu_torch.models.tv import tv_denoising3d_chw
+
+    y = torch.from_numpy(np.random.RandomState(1).rand(40, 52, 3).astype(np.float32))
+    before = kernels.tv_denoise_chw.launches
+    got = tv_denoising(y.to(cuda), 0.1, 20)
+    assert kernels.tv_denoise_chw.launches == before + 1
+    ref = kernels.tv_denoise_chw_plain(y.permute(2, 0, 1).contiguous(), torch.tensor(0.1), 20)
+    assert torch.equal(got.cpu(), ref.permute(1, 2, 0))
+    got3 = tv_denoising3d(y.to(cuda), 0.1, 20).cpu()
+    ref3 = tv_denoising3d_chw(y.permute(2, 0, 1), 0.1, 20).permute(1, 2, 0)
+    assert float((got3 - ref3).abs().max()) <= 1e-5
