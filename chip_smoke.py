@@ -127,6 +127,23 @@ exits non-zero):
               bilevel step (nonneg: the fused ADMM update) and the joint
               optic's step (mosaic(conv_doe), CG x-update: bdot), each
               against the CPU.
+15. parallel - dprox_tpu_torch.parallel in a one-rank NCCL world on
+              cuda:0 (the machine has one GPU; NCCL puts one rank on a GPU,
+              so the collectives are copies or no-ops and the numbers are
+              the mesh paths' overhead, not multi-GPU results): the
+              flagship with its prior and x-update spatially sharded
+              (deep_prior / compile(spatial_mesh=)), its PSNR within 0.05
+              dB of JAX-CPU and 1e-4 dB of the unsharded solve, TV and the
+              divide 48 times, 97 all-to-alls; solve_batched_sharded on
+              four 3x512x512 nonneg deconvolutions (path A's and three
+              flips), each within BATCHED_TOL of its own solve, no
+              collective; the consensus LP with mesh= against mesh=None and
+              HiGHS, and the mesh's overhead on 20 outer iterations in
+              turns; the distributed FFT pair against torch.fft.fftn,
+              sharded_denoise against the call, consensus_admm and
+              distributed_cg on tests/test_parallel.py's systems; NCCL
+              events in profiler traces; each path's ms beside its
+              unsharded counterpart.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls; phase
@@ -328,6 +345,7 @@ LP_OBJECTIVE_TOL = 1e-3         # |c @ x - HiGHS| / |HiGHS|
 LP_GAP_SLACK = 1e-3             # each gap <= r_norm * (1 + slack) + 1e-6
 LP_X_MIN = -1e-2
 CONSENSUS_OBJECTIVE_TOL = 5e-3  # against the extensive form's HiGHS optimum
+BATCHED_TOL = 1e-6  # phase parallel (b): each image of the batch against its own solve
 # max |kernel - plain| / max |plain|, the plain version run on float64
 # copies of the same inputs (a float32 sum of thousands of terms in one
 # order drifts ~1e-6 from the exact sum, in another order as much again)
@@ -1759,6 +1777,305 @@ def phase_lp_consensus(kernels, dev, card):
         raise AssertionError(f"lp_consensus: objective gap {gap} > {CONSENSUS_OBJECTIVE_TOL}")
     if not same:
         raise AssertionError("lp_consensus: two solves of one problem differ")
+    return {"objective": res["objective"], "highs": float(ref.fun), "s": seconds,
+            "launches": launches}
+
+
+class _Collectives:
+    """Counts the torch.distributed collectives called inside ``with``
+    (the wrappers see the port's calls: it looks them up on the module)."""
+
+    NAMES = ("all_to_all_single", "all_reduce", "all_gather", "all_gather_into_tensor",
+             "broadcast", "batch_isend_irecv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts, self._saved = {}, {n: getattr(dist, n) for n in self.NAMES}
+
+        def counted(name, fn):
+            def call(*a, **k):
+                self.counts[name] = self.counts.get(name, 0) + 1
+                return fn(*a, **k)
+            return call
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, counted(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+def _device_trace(fn):
+    """One run of ``fn`` under torch.profiler: (the device kernels' summed
+    ms, NCCL kernels, device-to-device copies), or None where the profiler
+    recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None
+    busy = sum(e.device_time for e in ev if not e.name.startswith(("Memcpy", "Memset"))) / 1e3
+    return {"kernels_ms": busy,
+            "nccl_kernels": sum(1 for e in ev if "nccl" in e.name.lower()),
+            "memcpy_dtod": sum(1 for e in ev if e.name.startswith("Memcpy DtoD")),
+            "nccl_names": sorted({e.name for e in ev if "nccl" in e.name.lower()})}
+
+
+def _in_turns(plain, sharded, reps):
+    """Best host ms of the unsharded and the mesh version of one piece of
+    work, run in turns (unsharded, mesh, mesh, unsharded), each turn
+    ``_best_ms`` of ``reps``."""
+    out = {"unsharded": [], "mesh": []}
+    for which in ("unsharded", "mesh", "mesh", "unsharded"):
+        out[which].append(_best_ms(plain if which == "unsharded" else sharded, reps))
+    return out
+
+
+def phase_parallel(dp, kernels, dev, card, flagship_its, lp_cons):
+    """dprox_tpu_torch.parallel in a one-rank NCCL world on cuda:0. With one
+    rank the all-to-all, the all-reduces and the gathers are copies or
+    no-ops, and the halo exchange posts nothing: these are one-rank results,
+    the overhead of the mesh paths (DTensor dispatch, the NCCL calls) beside
+    their unsharded counterparts, not multi-GPU results; the ranks'
+    exchanges are held on the CPU (tests/test_torch_parallel.py).
+
+    (a) the flagship with the prior and the x-update spatially sharded;
+    (b) solve_batched_sharded on path A's problem, 4 images; (c) the
+    consensus LP with a mesh; (d) the distributed FFT pair, sharded_denoise,
+    consensus_admm, distributed_cg; (e) NCCL kernels in a profiler trace.
+    Returns the launch counts of (a), (b) and (c)."""
+    import torch.distributed as dist
+
+    from dprox_tpu_torch.algo.lp import solve_consensus_lp
+    from dprox_tpu_torch.contrib.energy_system import synthetic_cep_scenarios
+    from dprox_tpu_torch.parallel import (consensus_admm, create_mesh, distributed_cg,
+                                          shard_batch, sharded_denoise, solve_batched_sharded)
+    from dprox_tpu_torch.parallel.fft import make_distributed_fft2
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+    from dprox_tpu_torch.utils.metrics import psnr
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        m = create_mesh(("space",))
+        rec, by_path = {"phase": "parallel", "world": "one rank, NCCL, cuda:0",
+                        "backend": dist.get_backend(), "card": card}, {}
+        # (a) the flagship, prior and x-update sharded over "space"
+        solver_u, img, b = flagship(dp, dev)
+        psf = point_spread_function(15, 5)
+        # the FFDNet's radius (2 nb); the fused TV's 10 iterations reach less
+        # far. The fusion declares no radius, in the JAX package too
+        halo = solver_u.psi_fns[0].denoiser.deep.receptive_radius
+        x = dp.Variable()
+        solver_s = dp.compile([dp.sum_squares(dp.conv(x, psf) - b),
+                               dp.deep_prior(x, "distilled_color_tv", spatial_mesh=m,
+                                             spatial_halo=halo, spatial_gather=False)],
+                              "admm", spatial_mesh=m)
+        rhos, sigmas = dp.log_descent(80, 30, MAIN_ITERS)
+        kw = {"rhos": rhos, "lams": sigmas, "max_iter": MAIN_ITERS}
+        out_u = solver_u.solve(x0=b, **kw)
+        solver_s.solve(x0=b, **kw)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with _Collectives() as coll:
+            t0 = time.perf_counter()
+            out_s = solver_s.solve(x0=b, **kw)
+            torch.cuda.synchronize()
+            s_ms = (time.perf_counter() - t0) * 1e3
+        by_path["parallel_flagship"] = launches = kernels.launch_counts()
+        full = out_s.full_tensor()
+        p_u, p_s = psnr(out_u, img), psnr(full, img)
+        u_ms = _best_ms(lambda: solver_u.solve(x0=b, **kw), 3)
+        obs = _marginal(lambda k: solver_s.solve(x0=b, rhos=rhos[:k], lams=sigmas[:k],
+                                                 max_iter=k), 8, MAIN_ITERS, reps=3, estimates=3)
+        it_s = _iteration_ms_eager(solver_s, b, rhos[0], sigmas[0])
+        it_u = _iteration_ms_eager(solver_u, b, rhos[0], sigmas[0])
+        rec["a_flagship"] = {
+            "config": "distilled_color_tv 1x3x512x512, psf(15, 5), log_descent(80, 30, 48); "
+                      "deep_prior(spatial_mesh=m, spatial_gather=False), "
+                      "compile(..., 'admm', spatial_mesh=m)",
+            "output_type": type(out_s).__name__, "placements": str(out_s.placements),
+            "psnr_x": p_s, "psnr_x_unsharded": p_u, "jax_cpu_psnr_x": JAX_CPU_PSNR_X,
+            "gap_to_jax_cpu_db": p_s - JAX_CPU_PSNR_X, "gap_to_unsharded_db": p_s - p_u,
+            "max_abs_diff_to_unsharded": float((full - out_u).abs().max()),
+            "launches": launches, "collectives": coll.counts,
+            "solve_ms": s_ms, "unsharded_solve_ms": u_ms,
+            "its_per_sec": statistics.median(obs), "obs": obs,
+            "unsharded_its_per_sec": flagship_its, "span": f"8-{MAIN_ITERS}",
+            "iteration_eager_ms": it_s["eager_ms"], "unsharded_iteration_eager_ms": it_u["eager_ms"],
+            "iteration_trace": it_s["trace_per_iteration"],
+            "unsharded_iteration_trace": it_u["trace_per_iteration"]}
+        if not abs(p_s - JAX_CPU_PSNR_X) <= PSNR_TOL_DB:
+            raise AssertionError(f"parallel (a): PSNR {p_s} not within {PSNR_TOL_DB} dB of "
+                                 f"JAX-CPU {JAX_CPU_PSNR_X}")
+        if not abs(p_s - p_u) <= 1e-4:
+            raise AssertionError(f"parallel (a): PSNR {p_s} not within 1e-4 dB of the "
+                                 f"unsharded {p_u}")
+        want = dict.fromkeys(launches, 0) | {"tv_denoise_chw": MAIN_ITERS,
+                                             "freq_divide": MAIN_ITERS}
+        if launches != want:
+            raise AssertionError(f"parallel (a): launch counts {launches} != {want}")
+        if coll.counts != {"all_to_all_single": 1 + 2 * MAIN_ITERS}:
+            raise AssertionError(f"parallel (a): collectives {coll.counts}: one all-to-all "
+                                 "for the hoisted F(b) and two an iteration expected")
+        del solver_u, solver_s, out_u, out_s, full
+
+        # (b) path A's problem, 4 observations, batch-sharded
+        mb = create_mesh(("batch",))
+        _, b1 = observation(512, psf, False, dev)
+        b4 = torch.cat([b1, b1.flip(-1), b1.flip(-2), b1.flip(-1, -2)]).contiguous()
+        x, y = dp.Variable(), dp.Placeholder("y")
+        solver = dp.compile([dp.sum_squares(dp.conv(x, psf) - y), dp.nonneg(x)], "admm")
+        kwb = {"rhos": 0.05, "lams": 0.01, "max_iter": JAX_CPU_NONNEG_ITERS}
+        singles = [solver.solve(x0=b4[i:i + 1], params={"y": b4[i:i + 1]}, **kwb)
+                   for i in range(4)]
+        solve_batched_sharded(solver, b4, mb, params={"y": b4}, **kwb)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with _Collectives() as coll:
+            xb = solve_batched_sharded(solver, b4, mb, params={"y": b4}, **kwb)
+            torch.cuda.synchronize()
+        by_path["parallel_batched"] = launches = kernels.launch_counts()
+        diffs = [float((xb.to_local()[i:i + 1] - singles[i]).abs().max()) for i in range(4)]
+        rec["b_batched"] = {
+            "config": "sum_squares(conv(x, psf(15, 5)) - y) + nonneg(x), y = path A's b and "
+                      "three flips, 4x3x512x512, rhos 0.05, lams 0.01, 124 iterations",
+            "max_abs_diff_to_single_solves": diffs, "launches": launches,
+            "collectives": coll.counts,
+            "solve_ms_in_turns": _in_turns(
+                lambda: solver.solve(x0=b4, params={"y": b4}, **kwb),
+                lambda: solve_batched_sharded(solver, b4, mb, params={"y": b4}, **kwb), 3),
+            "trace": _device_trace(lambda: solve_batched_sharded(
+                solver, b4, mb, params={"y": b4}, rhos=0.05, lams=0.01, max_iter=5))}
+        if max(diffs) > BATCHED_TOL:
+            raise AssertionError(f"parallel (b): outputs {diffs} from the single solves > "
+                                 f"{BATCHED_TOL}")
+        n = JAX_CPU_NONNEG_ITERS
+        want = dict.fromkeys(launches, 0) | {"fused_admm_update": n, "freq_divide": n}
+        if launches != want or coll.counts:
+            raise AssertionError(f"parallel (b): launches {launches} != {want} or collectives "
+                                 f"{coll.counts}")
+        del solver, singles, xb
+
+        # (c) the consensus LP, scenarios over a "scenario" mesh
+        ms_ = create_mesh(("scenario",))
+        c, A_ub, A_eq, b_ub, b_eq_s, sh = synthetic_cep_scenarios(64, 8, 8)
+        kwc = dict(max_outer=300, eval_freq=50, tol=1e-3, rho_ph=1.0, verbose=False, fused=True,
+                   dtype=torch.float32)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with _Collectives() as coll:
+            t0 = time.perf_counter()
+            z, xs, _, res = solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, mesh=ms_, **kwc)
+            torch.cuda.synchronize()
+            lp_s = time.perf_counter() - t0
+        by_path["parallel_lp"] = launches = kernels.launch_counts()
+        rel = abs(res["objective"] - lp_cons["objective"]) / abs(lp_cons["objective"])
+        gap = (res["objective"] - lp_cons["highs"]) / abs(lp_cons["highs"])
+        chunks = -(-res["outer_iters"] // 50)
+        # the mesh's overhead on 10 outer iterations of the same solver and
+        # problem, mesh=None and the mesh in turns
+        from dprox_tpu_torch.algo.lp import ConsensusLPSolver, ScenarioLP
+
+        p_lp = ScenarioLP(c, A_ub, b_ub, A_eq, b_eq_s, sh, dtype=torch.float32)
+        lp_solver = ConsensusLPSolver(rho_ph=1.0, dtype=torch.float32)
+        kw10 = dict(max_outer=10, eval_freq=10, tol=1e-3)
+        ten = lambda mesh: lp_solver.solve_fused(p_lp, mesh=mesh, **kw10)  # noqa: E731
+        rec["c_lp"] = {
+            "config": "synthetic_cep_scenarios(64, 8, 8), float32, solve_consensus_lp(mesh=m, "
+                      "max_outer=300, eval_freq=50, tol=1e-3, rho_ph=1.0, fused=True)",
+            "objective": res["objective"], "objective_mesh_none": lp_cons["objective"],
+            "rel_diff_to_mesh_none": rel, "objective_gap_to_highs": gap,
+            "outer_iterations": res["outer_iters"], "launches": launches,
+            "collectives": coll.counts, "solve_s": lp_s, "mesh_none_solve_s": lp_cons["s"],
+            "mesh_none_launches": lp_cons["launches"],
+            "ten_outer_iterations_ms_in_turns": _in_turns(lambda: ten(None), lambda: ten(ms_), 1),
+            "one_all_reduce_ms": time_ms(lambda: dist.all_reduce(
+                torch.zeros(8, device=dev), group=ms_.get_group("scenario")), 20, 5, graph=False),
+            "trace_10_outer_iterations": _device_trace(lambda: ten(ms_)),
+            "mesh_none_trace_10_outer_iterations": _device_trace(lambda: ten(None))}
+        if not rel <= 1e-6 or not abs(gap) <= CONSENSUS_OBJECTIVE_TOL:
+            raise AssertionError(f"parallel (c): objective {res['objective']} vs mesh=None "
+                                 f"{lp_cons['objective']} ({rel}), HiGHS gap {gap}")
+        want_c = {"all_reduce": res["outer_iters"] + 3 * chunks, "all_gather": 1}
+        if launches["bdot"] <= 0 or coll.counts != want_c:
+            raise AssertionError(f"parallel (c): bdot {launches['bdot']}, collectives "
+                                 f"{coll.counts} != {want_c}")
+
+        # (d) the distributed FFT pair, the sharded denoiser, consensus, CG
+        rng = np.random.RandomState(12)
+        xc = torch.from_numpy((rng.rand(1, 3, 512, 512) + 1j * rng.rand(1, 3, 512, 512))
+                              .astype(np.complex64)).to(dev)
+        fft2, ifft2 = make_distributed_fft2(m, "space")
+        F = fft2(xc).to_local()
+        ref = torch.fft.fftn(xc, dim=(-2, -1))
+        fft_rel = float((F - ref).abs().max() / ref.abs().max())
+        rt = float((ifft2(fft2(xc)).to_local() - xc).abs().max())
+        flag_solver, _, bf = flagship(dp, dev)
+        den = flag_solver.psi_fns[0].denoiser
+        sig = sigmas[0].to(dev).reshape(-1)
+        yd = sharded_denoise(lambda blk: den.denoise(blk, sig), bf, m, halo=halo).to_local()
+        den_err = float((yd - den.denoise(bf, sig)).abs().max())
+        a = torch.from_numpy(np.random.RandomState(0).rand(8, 4, 4).astype(np.float32)).to(dev)
+        zc = consensus_admm(lambda v, rho, ai: (2 * ai + rho * v) / (2 + rho),
+                            torch.zeros(4, 4, device=dev), a, mb, max_iter=100).to_local()
+        cons_err = float((zc - a.mean(0)).abs().max())
+        r0 = np.random.RandomState(0)
+        Ps = r0.rand(8, 16, 16).astype(np.float32)
+        As = np.einsum("bij,bkj->bik", Ps, Ps) + 16 * np.eye(16, dtype=np.float32)
+        xs_true = r0.rand(8, 16).astype(np.float32)
+        As_t = torch.from_numpy(As).to(dev)
+        xcg = distributed_cg(lambda v: torch.einsum("bij,bj->bi", As_t, v),
+                             shard_batch(np.einsum("bij,bj->bi", As, xs_true), mb), mb,
+                             axis="batch", rtol=1e-7, max_iters=200).to_local()
+        cg_err = float((xcg - torch.from_numpy(xs_true).to(dev)).abs().max())
+        bh = torch.from_numpy(np.random.RandomState(1).rand(8, 4).astype(np.float32)).to(dev)
+        cgh_err = float((distributed_cg(lambda v: 3.0 * v, shard_batch(bh, mb), mb, axis="batch",
+                                        rtol=1e-10, max_iters=50).to_local() - bh / 3).abs().max())
+        rec["d_pieces"] = {
+            "fft2_rel_err": fft_rel, "roundtrip_max_abs_err": rt,
+            "fft_pair_ms": time_ms(lambda: ifft2(fft2(xc)), 20, 5, graph=False),
+            "torch_fftn_pair_ms": time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(
+                xc, dim=(-2, -1)), dim=(-2, -1)), 20, 5, graph=False),
+            "sharded_denoise_max_abs_err": den_err, "halo": halo,
+            "sharded_denoise_ms": time_ms(lambda: sharded_denoise(
+                lambda blk: den.denoise(blk, sig), bf, m, halo=halo), 10, 3, graph=False),
+            "denoise_ms": time_ms(lambda: den.denoise(bf, sig), 10, 3, graph=False),
+            "consensus_admm_max_abs_err": cons_err, "block_cg_max_abs_err": cg_err,
+            "cg_helper_max_abs_err": cgh_err}
+        bad = [k for k, v, tol in (("fft2", fft_rel, 1e-4), ("roundtrip", rt, 1e-5),
+                                   ("sharded_denoise", den_err, 2e-5),
+                                   ("consensus_admm", cons_err, 1e-3), ("block_cg", cg_err, 1e-2),
+                                   ("cg_helper", cgh_err, 1e-5)) if not v <= tol]
+        emit(rec)
+        if bad:
+            raise AssertionError(f"parallel (d): {bad} outside their tolerances")
+        return by_path
+    finally:
+        dist.destroy_process_group()
+
+
+def _iteration_ms_eager(solver, b, rho, lam):
+    """One iteration of ``solver`` from its initial state: eager ms (host
+    launch overhead included, as in the solve loop) and its device trace
+    (``_device_trace`` of four iterations, divided by four)."""
+    x0 = solver._prepare_x0(b)
+    aux, state = solver.prepare_aux(x0, {}), solver.initialize(x0, {})
+    rho, lam = rho.to(b.device), lam.to(b.device)
+    step = lambda: solver._iter(state, rho, [lam], 0, {}, aux)  # noqa: E731
+    trace = _device_trace(lambda: [step() for _ in range(4)])
+    if trace is not None:
+        trace = {k: v / 4 if isinstance(v, (int, float)) else v for k, v in trace.items()}
+    return {"eager_ms": time_ms(step, 10, 3, graph=False), "trace_per_iteration": trace}
 
 
 def luminance_observation(psf, dev):
@@ -3452,8 +3769,10 @@ def main() -> int:
     phase_grad(dp, kernels, dev, card)
     lap("nonneg_joint_grad")
     by_path["lp"] = phase_lp(kernels, dev, card)
-    phase_lp_consensus(kernels, dev, card)
+    lp_cons = phase_lp_consensus(kernels, dev, card)
     lap("lp")
+    by_path.update(phase_parallel(dp, kernels, dev, card, flagship_its, lp_cons))
+    lap("parallel")
     for name, phase in (("family", lambda: phase_family(dp, kernels, dev, card, flagship_its)),
                         ("algos", lambda: phase_algos(dp, kernels, dev, card)),
                         ("fast", lambda: phase_fast(dp, kernels, dev, card)),

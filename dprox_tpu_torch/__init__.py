@@ -37,12 +37,18 @@ hot kernels are hand-written for Hopper (``ops/kernels.py``, sources in
 * the LP path (``dp.algo.lp``: ``solve_lp``, ``LPProblem``,
   ``LPSolverADMM``, the scenario-consensus solver, and ``BSRMat`` on the
   ``csr_matvec`` / ``bsr_matvec`` kernels) with the energy-planning
-  instances of ``dp.contrib.energy_system``.
+  instances of ``dp.contrib.energy_system``;
+* multi-device execution (``dp.parallel`` on ``torch.distributed``, a
+  mesh a ``DeviceMesh`` and a sharded array a ``DTensor``): the
+  batch-sharded solve, consensus ADMM, distributed CG, the distributed
+  FFT and the halo-exchange denoiser, with the spatially sharded prior
+  and x-update (``deep_prior`` / ``compile(..., spatial_mesh=)``) and the
+  consensus LP over a mesh.
 """
 
 __version__ = "0.1.0"
 
-from . import algo, contrib, linalg, linop, ops, proxfn, utils
+from . import algo, contrib, linalg, linop, ops, parallel, proxfn, utils
 from .algo import (ADMM, ADMM_vxu, HQS, Algorithm, AutoTuneSolver, DEQSolver, LinearizedADMM,
                    PockChambolle, Problem, ProximalGradientDescent, UnrolledSolver, compile,
                    log_descent, optimize, specialize, train, visualize)

@@ -12,6 +12,11 @@ kernel, which computes exactly what the generic prox + dual update
 computes (on a complex state such a block raises: torch orders no complex
 numbers); the two variants override ``_iter`` and take the generic route,
 as in the JAX package.
+
+With ``spatial_mesh`` the x-update runs sharded over the mesh
+(``least_squares(spatial_mesh=)``) and the state is carried as DTensors
+sharded in H: the loop between the x-update and the proxes is pointwise,
+and the kernel of a fused block runs on each rank's rows.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from ..ops.kernels import fused_admm_update
 from ..proxfn.base import ProxFn
 from ..proxfn.simple import nonneg, norm1
 from ..proxfn.sum_squares import ext_sum_squares, sum_squares
+from ..utils.misc import is_dtensor
 from .base import Algorithm
 from .invert import get_least_square_solver
 
@@ -43,11 +49,24 @@ class ADMM(Algorithm):
 
     def __init__(self, psi_fns, omega_fns, try_diagonalize=True,
                  try_freq_diagonalize=True,
-                 linear_solve_config: LinearSolveConfig = None, device="cuda"):
+                 linear_solve_config: LinearSolveConfig = None, device="cuda",
+                 spatial_mesh=None, spatial_axis: str = "space", spatial_batch_axis=None):
         super().__init__(psi_fns, omega_fns, device=device)
         self.least_square = get_least_square_solver(
             self.psi_fns, self.omega_fns, try_diagonalize, try_freq_diagonalize,
-            linear_solve_config or LinearSolveConfig())
+            linear_solve_config or LinearSolveConfig(), spatial_mesh=spatial_mesh,
+            spatial_axis=spatial_axis, spatial_batch_axis=spatial_batch_axis)
+
+    def _prepare_x0(self, x0):
+        """With a sharded x-update, x0 (a DTensor, or a global value that each
+        rank slices) is carried sharded as the x-update shards its output."""
+        x0 = super()._prepare_x0(x0)
+        ls = self.least_square
+        if getattr(ls, "spatial_mesh", None) is None:
+            return x0
+        from ..parallel.mesh import from_local
+
+        return from_local(ls._rows(x0), ls.spatial_mesh, ls._row_dims)
 
     def initialize(self, x0, params, v=None):
         if getattr(self.least_square, "complex_state", False):
@@ -79,7 +98,14 @@ class ADMM(Algorithm):
                 ui = u[i] + Kx[i] - vi
             else:  # alpha * f scales lam, as in ProxFn.prox; nonneg reads no lam
                 lam_i = lam[i] if kind == "nonneg" or fn.alpha == 1.0 else lam[i] * fn.alpha
-                vi, ui = fused_admm_update(Kx[i].contiguous(), u[i].contiguous(), lam_i, kind)
+                update = lambda k, uu: fused_admm_update(k.contiguous(), uu.contiguous(),  # noqa: E731
+                                                         lam_i, kind)
+                if is_dtensor(Kx[i]):  # the kernel runs on this rank's blocks
+                    from ..parallel.mesh import map_local
+
+                    vi, ui = map_local(update, Kx[i], u[i])
+                else:
+                    vi, ui = update(Kx[i], u[i])
             v_new.append(vi)
             u_new.append(ui)
         return (x, tuple(v_new), tuple(u_new))

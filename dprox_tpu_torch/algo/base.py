@@ -25,7 +25,7 @@ from torch.utils._pytree import tree_map
 
 from ..linop.base import Params
 from ..proxfn.base import ProxFn
-from ..utils.misc import resolve_device, to_tensor
+from ..utils.misc import is_dtensor, resolve_device, to_tensor
 
 Array = torch.Tensor
 
@@ -64,7 +64,10 @@ def decode_complex(tree):
 def params_to(params, device):
     """A solve's ``params`` with every array and tensor on ``device``,
     nested dicts, lists and tuples included (a denoiser's weight dict
-    under its ``param_key``); ``.to`` keeps a tensor's autograd graph."""
+    under its ``param_key``); ``.to`` keeps a tensor's autograd graph. A
+    DTensor stays on its mesh."""
+    if is_dtensor(params):
+        return params
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -182,7 +185,10 @@ class Algorithm:
     def _prepare_x0(self, x0):
         """x0 batched on the device, complex64 if complex (a k-space
         state), else float32. A complex numpy x0 gets leading axes up to
-        4-D, as the JAX package gives it."""
+        4-D, as the JAX package gives it. A DTensor (a sharded batch of
+        images, ``parallel``) stays on its mesh."""
+        if is_dtensor(x0):
+            return x0.to(torch.complex64 if x0.is_complex() else torch.float32)
         if isinstance(x0, np.ndarray) and np.iscomplexobj(x0):
             if x0.ndim == 3 and x0.shape[2] in (1, 3):
                 x0 = x0.transpose(2, 0, 1)

@@ -1,8 +1,6 @@
-"""Scenario consensus ADMM for two-stage stochastic LPs, on one device.
+"""Scenario consensus ADMM for two-stage stochastic LPs.
 
-Counterpart of dprox_tpu/algo/lp/consensus.py without its mesh branches
-(those belong to the multi-device slice; passing a mesh raises). The
-problem
+Counterpart of dprox_tpu/algo/lp/consensus.py. The problem
 
     min_z  sum_s p_s [ c' x_s ]   s.t.  A_ub x_s <= b_ub,s
                                         A_eq x_s  = b_eq,s,  x_s >= 0
@@ -27,16 +25,26 @@ multi-right-hand-side apply ``A @ X`` with X (n, S): a batched tile
 product (``BSRMat.matmat``) instead of S separate matvecs. Scenario state
 has a leading batch axis, and the inner PCG is batched over it (its dot
 products are the ``bdot`` kernel).
+
+With a ``mesh`` (``parallel.create_mesh``) the scenarios are sharded over
+the mesh axis: each rank iterates on its S/n scenarios, the inner
+iterations and the PCG are rank-local, and the only collective of an
+outer iteration is the consensus mean (a SUM all-reduce of the local
+means, divided by n); each chunk's diagnostics add a SUM all-reduce (the
+objective) and two MAX all-reduces (the residuals). Every rank reads the
+same reduced values, so all ranks take the same control flow and return
+the same z and objective.
 """
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.distributed as dist
 
 from ...linalg.solvers import cg_unrolled
 from ...linalg.solvers import pcg as batched_pcg
@@ -45,11 +53,49 @@ from .solvers import _clip, _sync
 from .utils import ruiz_equilibration_sparse, scipy_to_device_op
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the consensus LP solver over a device mesh is not ported yet: it "
-            "comes with the multi-device slice (torch.distributed); pass mesh=None")
+class _Shard(NamedTuple):
+    """A rank's share of the scenarios and the reductions over all of
+    them: its bounds and normalized probabilities, the global mean over
+    the scenario axis of a local [S_local, ...] tensor, and the global max
+    of a local value."""
+
+    lb: torch.Tensor
+    ub: torch.Tensor
+    pn: torch.Tensor
+    gmean: Callable
+    gmax: Callable
+    gather: Callable  # local [S_local, ...] -> the whole [S, ...]
+
+
+def _shard(p: "ScenarioLP", mesh, axis: str) -> _Shard:
+    if mesh is None:
+        return _Shard(p.lb, p.ub, p.pn, lambda v: torch.mean(v, dim=0), lambda v: v,
+                      lambda v: v)
+    from ...parallel.mesh import axis_size, check_device
+
+    check_device(p.lb, mesh)
+    group, n = mesh.get_group(axis), axis_size(mesh, axis)
+    if p.S % n:
+        raise ValueError(f"n_scenarios={p.S} must divide over the {n}-rank mesh axis {axis!r}")
+    k = p.S // n
+    rows = slice(mesh.get_local_rank(axis) * k, (mesh.get_local_rank(axis) + 1) * k)
+
+    def gmean(v):
+        m = torch.mean(v, dim=0)
+        dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+        return m / n
+
+    def gmax(v):
+        v = v.clone()
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=group)
+        return v
+
+    def gather(v):
+        parts = [torch.empty_like(v) for _ in range(n)]
+        dist.all_gather(parts, v.contiguous(), group=group)
+        return torch.cat(parts)
+
+    return _Shard(p.lb[rows], p.ub[rows], p.pn[rows], gmean, gmax, gather)
 
 
 class ScenarioLP:
@@ -143,8 +189,11 @@ class ScenarioLP:
         q = torch.zeros((u.shape[0], self.n), dtype=self.dtype, device=self.device)
         return cbar[None] + q.index_add(1, self.E, self.w[None] * (u - rho_ph * z[None]))
 
-    def zero_state(self):
-        S, n, m, k = self.S, self.n, self.lb.shape[1], self.E.shape[0]
+    def zero_state(self, S: Optional[int] = None):
+        """The solver's initial (x, zc, y, xt, u, z) for ``S`` scenarios
+        (default: all of them)."""
+        S = self.S if S is None else S
+        n, m, k = self.n, self.lb.shape[1], self.E.shape[0]
         zeros = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
         return (zeros(S, n), zeros(S, m), zeros(S, m), zeros(S, n), zeros(S, k), zeros(k))
 
@@ -262,9 +311,10 @@ class ConsensusLPSolver:
         with torch.no_grad():
             return {k: v.to(self.dtype) for k, v in to_params(best).items()}
 
-    def _build(self, p: ScenarioLP, params, pcg_iters: int, pcg_rtol: float):
+    def _build(self, p: ScenarioLP, params, pcg_iters: int, pcg_rtol: float, sh: _Shard):
         """Shared iteration machinery for ``solve`` (host control) and
-        ``solve_fused`` (device control): returns ``chunk_body``."""
+        ``solve_fused`` (device control) on the scenarios of ``sh``:
+        returns ``chunk_body``."""
         dt = self.dtype
         # same dtype-aware floor as LPSolverADMM: an unreachable inner
         # tolerance just burns the PCG iteration cap in roundoff noise
@@ -283,7 +333,7 @@ class ConsensusLPSolver:
             Minv_diag = 1.0 / (sigma + Pvec + rho * p.Acnorm ** 2)
             # probability-weighted mean: pn is normalized to mean 1, hence
             # mean(pn*v) = sum_s p_s v_s
-            wmean = lambda v: torch.mean(p.pn[:, None] * v, dim=0)
+            wmean = lambda v: sh.gmean(sh.pn[:, None] * v)
 
             def KtK(V):
                 return p.apply_AT(rho * p.apply_A(V)) + (sigma + Pvec) * V
@@ -296,12 +346,12 @@ class ConsensusLPSolver:
                 q = p.linear_cost(u, z, rho_ph)
                 for _ in range(self.inner_steps):
                     x, zc, y, xt = self._inner_iter(p, (x, zc, y, xt), solve_x, q, rho,
-                                                    sigma, alpha, p.lb, p.ub)
+                                                    sigma, alpha, sh.lb, sh.ub)
                 xE = w[None] * x[:, E]  # true units
                 z = wmean(xE)
                 u = u + rho_ph * (xE - z[None])
             xE = w[None] * x[:, E]
-            r_na = torch.max(torch.abs(xE - z[None]))
+            r_na = sh.gmax(torch.max(torch.abs(xE - z[None])))
             # consensus dual-residual proxy: mean per-iteration z movement
             dz = torch.max(torch.abs(z - z_in)) / steps
             x_true = p.d[None] * x
@@ -309,7 +359,7 @@ class ConsensusLPSolver:
             obj = c_true[E] @ z + wmean(obj_local[:, None])[0]
             # worst primal infeasibility of the scenario subproblems
             Ax = p.apply_A(x)
-            r_p = torch.max(torch.abs(Ax - _clip(Ax, p.lb, p.ub)))
+            r_p = sh.gmax(torch.max(torch.abs(Ax - _clip(Ax, sh.lb, sh.ub))))
             return (x, zc, y, xt, u, z), (r_na, obj, r_p, dz)
 
         return chunk_body
@@ -324,14 +374,16 @@ class ConsensusLPSolver:
 
         z: consensus first-stage solution (true units, shape (k,));
         x_s: per-scenario full solutions (S, n), both numpy; results: dict
-        with the extensive-form objective and residuals at exit.
+        with the extensive-form objective and residuals at exit. With a
+        ``mesh`` the scenarios are sharded over its ``axis`` (S must divide
+        its size) and every rank returns the whole result.
         """
-        _no_mesh(mesh)
         params = self._params(p, params)
         dt = self.dtype
-        chunk_body = self._build(p, params, pcg_iters, pcg_rtol)
+        sh = _shard(p, mesh, axis)
+        chunk_body = self._build(p, params, pcg_iters, pcg_rtol, sh)
         history = defaultdict(list)
-        carry = p.zero_state()
+        carry = p.zero_state(sh.lb.shape[0])
 
         k = 0
         r_na = obj = r_p = None
@@ -366,7 +418,7 @@ class ConsensusLPSolver:
                     rho_ph = max(rho_ph / 2, rho_ph0 * 1e-4)
 
         x, zc, y, xt, u, z = carry
-        x_true = (p.d[None] * x).cpu().numpy()
+        x_true = sh.gather(p.d[None] * x).cpu().numpy()
         results = {"objective": obj, "r_nonanticipativity": r_na,
                    "r_primal": r_p, "outer_iters": k,
                    "rho_ph_final": rho_ph}
@@ -381,13 +433,14 @@ class ConsensusLPSolver:
         """The consensus solve with its control on the device (counterpart
         of ``LPSolverADMM.solve_fused``): the convergence test and the
         rho_ph residual balancing are tensor operations, and the loop reads
-        the host once per chunk. Returns (z, x_s, results)."""
-        _no_mesh(mesh)
+        the host once per chunk. Returns (z, x_s, results); a ``mesh`` as in
+        ``solve``."""
         params = self._params(p, params)
-        chunk_body = self._build(p, params, pcg_iters, pcg_rtol)
+        sh = _shard(p, mesh, axis)
+        chunk_body = self._build(p, params, pcg_iters, pcg_rtol, sh)
         rho_ph0 = params["rho_ph"]
         rho_ph = rho_ph0
-        carry = p.zero_state()
+        carry = p.zero_state(sh.lb.shape[0])
         res = torch.full((4,), float("inf"), dtype=self.dtype, device=p.device)
         k, done = 0, False
         while k < max_outer and not done:
@@ -410,7 +463,7 @@ class ConsensusLPSolver:
         x, zc, y, xt, u, z = carry
         res = res.tolist()
         _sync(x)
-        x_true = (p.d[None] * x).cpu().numpy()
+        x_true = sh.gather(p.d[None] * x).cpu().numpy()
         results = {"objective": res[1], "r_nonanticipativity": res[0],
                    "r_primal": res[2], "outer_iters": k, "rho_ph_final": res[3]}
         return z.cpu().numpy(), x_true, results
@@ -427,8 +480,9 @@ def solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, shared_idx,
     Adam on the truncated-run convergence loss, then runs the full solve
     with the learned hyperparameters. ``fused=True`` runs that solve with
     its control on the device (no residual history). ``dtype`` defaults to
-    ``torch.get_default_dtype()``."""
-    _no_mesh(mesh)
+    ``torch.get_default_dtype()``. ``mesh``: shard the scenarios over a
+    mesh axis (``axis=``, default "scenario"); the pretraining runs on
+    every rank alike, on the whole problem."""
     if dtype is None:
         dtype = torch.get_default_dtype()
     solver_kw = {k: kwargs.pop(k) for k in
@@ -440,6 +494,6 @@ def solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, shared_idx,
     params = solver.pretrain(p, steps=pretrain_steps) if pretrain_steps \
         else None
     if fused:
-        z, x_s, results = solver.solve_fused(p, params=params, **kwargs)
+        z, x_s, results = solver.solve_fused(p, params=params, mesh=mesh, **kwargs)
         return z, x_s, {}, results
-    return solver.solve(p, params=params, **kwargs)
+    return solver.solve(p, params=params, mesh=mesh, **kwargs)

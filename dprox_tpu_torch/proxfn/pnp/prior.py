@@ -1,7 +1,7 @@
 """Plug-and-play deep denoiser prior.
 
 Counterpart of dprox_tpu/proxfn/pnp/prior.py: ``deep_prior`` (with
-``x8``, ``param_key`` and ``unroll_step``; without the spatial mesh) and
+``x8``, ``param_key``, ``unroll_step`` and the spatial mesh) and
 ``get_denoiser`` with every kind of the JAX package's registry: TV, the
 FFDNet family (gray and color, the DeepTV fusions, the bfloat16
 flagship), DRUNet and the FFDNet + DRUNet ``ensemble_tv``, IRCNN, UNet,
@@ -18,7 +18,7 @@ from typing import Optional, Union
 
 import torch
 
-from ...utils.misc import safe_sqrt
+from ...utils.misc import is_dtensor, safe_sqrt
 from ..base import ProxFn
 from .denoisers import (Augment, BF16Denoiser, Denoiser, DeepTVDenoiser, DRUNetDenoiser,
                         EnsembleDenoiser, FFDNetColorDenoiser, FFDNetDenoiser, IRCNNDenoiser,
@@ -128,16 +128,42 @@ class deep_prior(ProxFn):
     when the solve's params hold that key. ``unroll_step=n``: n unshared
     copies of the weights, stacked along a leading axis
     (``unrolled_params``), iteration k taking copy min(k, n - 1); a
-    ``params[param_key]`` is then stacked the same way."""
+    ``params[param_key]`` is then stacked the same way.
+
+    ``spatial_mesh``: run the denoiser spatially sharded over the mesh
+    axis ``spatial_axis`` with halo exchange (``parallel.sharded_denoise``),
+    the same as unsharded when the halo covers the receptive field.
+    ``spatial_halo=None`` takes the denoiser's ``receptive_radius``,
+    rounded up to an even number (raising if the denoiser declares none).
+    ``spatial_gather=True`` gathers the output: a plain tensor for a plain
+    input, a DTensor replicated over ``spatial_axis`` for a DTensor input;
+    ``False`` keeps it a DTensor sharded in H, for a solver whose x-update
+    is sharded too (``compile(..., spatial_mesh=)``).
+    ``spatial_batch_axis``: also shard the batch over this mesh axis."""
 
     def __init__(self, linop, denoiser: Union[str, Denoiser] = "ffdnet", x8: bool = False,
                  clamp: bool = False, trainable: bool = False, unroll_step: Optional[int] = None,
-                 sqrt: bool = False, param_key: Optional[str] = None):
+                 sqrt: bool = False, param_key: Optional[str] = None, spatial_mesh=None,
+                 spatial_axis: str = "space", spatial_halo: Optional[int] = None,
+                 spatial_gather: bool = True, spatial_batch_axis: Optional[str] = None):
         super().__init__(linop)
         self.name = denoiser if isinstance(denoiser, str) else type(denoiser).__name__
         self.denoiser = get_denoiser(denoiser) if isinstance(denoiser, str) else denoiser
         if x8:
             self.denoiser = Augment(self.denoiser)
+        self.spatial_mesh = spatial_mesh
+        self.spatial_axis = spatial_axis
+        self.spatial_batch_axis = spatial_batch_axis
+        self.spatial_gather = spatial_gather
+        if spatial_mesh is not None and spatial_halo is None:
+            r = getattr(self.denoiser, "receptive_radius", None)
+            if r is None:
+                raise ValueError(
+                    f"denoiser {self.name!r} declares no receptive_radius; "
+                    "pass spatial_halo= explicitly (it must cover the "
+                    "network's receptive field for exact sharded results)")
+            spatial_halo = int(r) + (int(r) % 2)  # round up to even
+        self.spatial_halo = spatial_halo
         self.clamp = clamp
         self.sqrt = sqrt
         self.trainable = trainable
@@ -172,6 +198,8 @@ class deep_prior(ProxFn):
 
     def _prox(self, v, lam, params=None, step=None):
         sigma = safe_sqrt(lam) if self.sqrt else lam
+        if self.spatial_mesh is not None:
+            return self._sharded_prox(v, sigma, params, step)
         if self.clamp:
             v = torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_ones(()))
         if v.is_complex():  # denoise the real part, copied out of the complex layout
@@ -180,6 +208,38 @@ class deep_prior(ProxFn):
         out = denoise_with(self.denoiser, inp, sigma.reshape(-1),
                            self._denoiser_params(params, step))
         return out.to(v.dtype).reshape(v.shape)
+
+    def _sharded_prox(self, v, sigma, params, step):
+        """The prox with the denoiser run on this rank's rows
+        (``sharded_denoise``); the clamp and the real part are pointwise,
+        so they run on the rows too."""
+        from ...parallel.mesh import from_local, local_shard, placements
+        from ...parallel.spatial import sharded_denoise
+
+        mesh, axis, ba = self.spatial_mesh, self.spatial_axis, self.spatial_batch_axis
+        lead = {ba: 0} if ba else {}
+        rows = {**lead, axis: v.ndim - 2}  # H of [B, C, H, W], or of [B, H, W]
+        v_l = local_shard(v, mesh, rows)
+        if self.clamp:
+            v_l = torch.minimum(torch.maximum(v_l, v_l.new_zeros(())), v_l.new_ones(()))
+        if v_l.is_complex():
+            v_l = v_l.real.contiguous()
+        dtype, squeeze = v_l.dtype, v.ndim == 3
+        sigma = sigma.reshape(-1)
+        if ba and sigma.numel() > 1:  # one noise level per image: this rank's images'
+            sigma = local_shard(sigma, mesh, {ba: 0})
+        dp = self._denoiser_params(params, step)
+        out = sharded_denoise(
+            lambda blk: denoise_with(self.denoiser, blk, sigma, dp).to(dtype),
+            from_local(v_l[:, None] if squeeze else v_l, mesh, {**lead, axis: 2}), mesh,
+            axis=axis, halo=self.spatial_halo, batch_axis=ba).to_local()
+        out = from_local(out[:, 0] if squeeze else out, mesh, rows)
+        if not self.spatial_gather:
+            return out
+        if not is_dtensor(v):  # a plain input gets the whole output, plain
+            return out.full_tensor()
+        # B stays sharded over the batch axis; the spatial shards gather
+        return out.redistribute(mesh, placements(mesh, lead))
 
     def __repr__(self):
         return f'deep_prior(denoiser="{self.name}", unroll={self.unroll})'

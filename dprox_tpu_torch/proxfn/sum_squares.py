@@ -12,6 +12,11 @@ Counterpart of dprox_tpu/proxfn/sum_squares.py (``sum_squares`` with
   implicit gradients, preconditioned in the frequency domain when the
   operator tree has a circulant surrogate.
 
+With a ``spatial_mesh`` the frequency x-update runs with the image
+sharded in H over a mesh axis: the distributed FFT pair
+(``parallel/fft.py``) around the same ``freq_divide`` kernel, applied to
+each rank's W slab of the spectrum.
+
 ``ext_sum_squares`` is the base of the fused fast proxes
 (``proxfn/fast``), whose closed-form ``_solve`` is the whole x-update.
 """
@@ -23,7 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..linalg import LinearSolveConfig, linear_solve
-from ..linop.base import LinOp, Params, Placeholder, vstack
+from ..linop.base import LinOp, Params, Placeholder, Variable, vstack
 from ..ops.kernels import freq_divide
 from ..utils.misc import expand_to_bchw, to_tensor
 from .base import Array, HeldData, ProxFn
@@ -235,11 +240,19 @@ class least_squares(ProxFn):
 
     quad_fns: the omega (data) terms whose offsets supply K^T b;
     other_fns: the psi terms contributing rho-weighted consensus blocks.
+
+    ``spatial_mesh``: run the frequency x-update with the image sharded in
+    H over the mesh axis ``spatial_axis`` (and the batch over
+    ``spatial_batch_axis``): its output is a DTensor sharded so. H and W
+    must divide the axis size, and the stacked operator must be
+    frequency-diagonal.
     """
 
     def __init__(self, quad_fns: List[ProxFn], other_fns: List[ProxFn],
                  try_diagonalize: bool = True, try_freq_diagonalize: bool = True,
-                 linear_solve_config: Optional[LinearSolveConfig] = None):
+                 linear_solve_config: Optional[LinearSolveConfig] = None,
+                 spatial_mesh=None, spatial_axis: str = "space",
+                 spatial_batch_axis: Optional[str] = None):
         self.quad_fns = list(quad_fns)
         self.other_fns = list(other_fns)
         self.linear_solve_config = linear_solve_config or LinearSolveConfig()
@@ -248,6 +261,18 @@ class least_squares(ProxFn):
         self.freq_diagonalizable = (stacked.is_gram_diag(freq=True) and try_diagonalize
                                     and try_freq_diagonalize)
         super().__init__(stacked)
+        self.spatial_mesh = spatial_mesh
+        if spatial_mesh is not None:
+            if not self.freq_diagonalizable:
+                raise ValueError("spatial_mesh shards the frequency x-update; this "
+                                 "objective's x-update is not frequency-diagonal")
+            from ..parallel.fft import make_distributed_fft2
+
+            self._fft2, self._ifft2 = make_distributed_fft2(
+                spatial_mesh, spatial_axis, batch_axis=spatial_batch_axis)
+            lead = {spatial_batch_axis: 0} if spatial_batch_axis else {}
+            self._row_dims = {**lead, spatial_axis: 2}  # space: H sharded
+            self._col_dims = {**lead, spatial_axis: 3}  # spectrum: W sharded
 
     def _prox(self, v, lam, params=None, step=None):
         return self.solve([], lam, v=v, params=params)
@@ -263,6 +288,8 @@ class least_squares(ProxFn):
         amplifies it ~1/rho where the OTF vanishes (DPIR schedules start
         at rho ~ 1e-6); multiplying by conj(H) suppresses it exactly there.
         """
+        if self.spatial_mesh is not None:
+            return self._prepare_sharded(var_shapes, params, ref_shape)
         prepared = {}
         freq_hoistable = (self.freq_diagonalizable
                           and all(fn.linop.is_diag(freq=True) for fn in self.quad_fns))
@@ -315,6 +342,85 @@ class least_squares(ProxFn):
             prepared["precond_psi"] = pp
         return prepared
 
+    # -- the x-update sharded over a spatial mesh ----------------------- #
+
+    def _rows(self, x):
+        """This rank's H rows of an image (DTensor or global value)."""
+        from ..parallel.mesh import local_shard
+
+        return local_shard(x, self.spatial_mesh, self._row_dims)
+
+    def _cols(self, d):
+        """This rank's W slab of a spectrum-shaped operand (a gram diagonal
+        or OTF, broadcastable to [B, C, H, W]; a scalar as it is)."""
+        from ..parallel.mesh import local_operand
+
+        return local_operand(d, self.spatial_mesh, self._col_dims, ndim=4)
+
+    def _prepare_sharded(self, var_shapes, params, ref_shape):
+        """``prepare`` on this rank's blocks: the frequency hoist conj(H) F(b)
+        and the gram diagonals as its W slab of the spectrum, a spatial
+        K^T b as its H rows."""
+        from ..parallel.mesh import to_global
+
+        prepared = {}
+        if all(fn.linop.is_diag(freq=True) for fn in self.quad_fns):
+            freq_Ktb = None
+            for fn in self.quad_fns:
+                off = fn.offset(var_shapes, params)
+                if off is not None:
+                    H = fn.linop.diag(tuple(off.shape), params, freq=True)
+                    term = torch.conj(self._cols(H)) * self._fft2.local(self._rows(off))
+                    freq_Ktb = term if freq_Ktb is None else freq_Ktb + term
+            prepared["freq_Ktb_quad"] = freq_Ktb
+        else:
+            Ktb_quad = 0.0
+            for fn in self.quad_fns:
+                off = fn.offset(var_shapes, params)
+                if off is not None:
+                    Ktb_quad = Ktb_quad + fn.dag_adjoint(to_global(off), params)
+            prepared["Ktb_quad"] = self._rows(Ktb_quad) if torch.is_tensor(Ktb_quad) else Ktb_quad
+        shape = ref_shape if ref_shape is not None else next(iter(var_shapes.values()))
+        for key, fns in (("diag_quad", self.quad_fns), ("diag_psi", self.other_fns)):
+            d = 0.0
+            for fn in fns:
+                d = d + fn.linop.gram_diag(shape, params, True)
+            prepared[key] = self._cols(d)
+        return prepared
+
+    def _adjoint_rows(self, fn, y, params):
+        """K^T y on this rank's rows: a Variable's adjoint is the identity,
+        so it runs on the rows; any other operator runs on the whole
+        image."""
+        if isinstance(fn.linop, Variable):
+            return fn.dag_adjoint(self._rows(y), params)
+        from ..parallel.mesh import to_global
+
+        return self._rows(fn.dag_adjoint(to_global(y), params))
+
+    def _solve_sharded(self, b, rho, v, params, eps, prepared):
+        """The frequency x-update on this rank's blocks: ``real(ifft2((F +
+        eps) / (diag_quad + rho*diag_psi [+ rho] + eps)))`` with ``F`` the
+        hoisted conj(H)F(b) plus the distributed FFT of this rank's rows of
+        ``rho * sum_i K_i^T b_i [+ rho v]``, the divide the ``freq_divide``
+        kernel on the W slab; returns a DTensor sharded in H."""
+        from ..parallel.mesh import from_local
+
+        hoisted = "freq_Ktb_quad" in prepared
+        acc = None if hoisted else prepared["Ktb_quad"]
+        for i, fn in enumerate(self.other_fns):
+            term = rho * self._adjoint_rows(fn, b[i], params)
+            acc = term if acc is None else acc + term
+        if v is not None:
+            term = rho * self._rows(v)
+            acc = term if acc is None else acc + term
+        F = prepared["freq_Ktb_quad"] if hoisted else None
+        if acc is not None:
+            F = self._fft2.local(acc) if F is None else F + self._fft2.local(acc)
+        diag, r = _divisor(prepared["diag_quad"], prepared["diag_psi"], rho, v is not None)
+        out = self._ifft2.local(freq_divide(F, diag, r, eps)).real.float().contiguous()
+        return from_local(out, self.spatial_mesh, self._row_dims)
+
     def _var_shapes(self, ref: Array, var_shapes=None):
         if var_shapes is not None:
             return var_shapes
@@ -363,6 +469,8 @@ class least_squares(ProxFn):
         eps)))``; spatially diagonal: ``K^T b / (diag + eps)``. Without
         ``prepared`` the hoisted terms are computed here."""
         prepared = self._prepared(b, v, params, var_shapes, prepared)
+        if self.spatial_mesh is not None:
+            return self._solve_sharded(b, rho, v, params, eps, prepared)
         if "freq_Ktb_quad" in prepared:
             s = None
             for i, fn in enumerate(self.other_fns):

@@ -6,6 +6,8 @@ reverses the transform.
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -81,6 +83,14 @@ def to_ndarray(x, debatch: bool = False, squeeze: bool = False) -> np.ndarray:
     if debatch:
         out = debatchify(out, squeeze)
     return out
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (a sharded
+    array, ``dprox_tpu_torch.parallel``), without importing that module:
+    no DTensor exists until something has imported it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

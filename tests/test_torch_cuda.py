@@ -1357,3 +1357,64 @@ def test_hwc_tv_denoising_reaches_the_tv_kernel(cuda):
     got3 = tv_denoising3d(y.to(cuda), 0.1, 20).cpu()
     ref3 = tv_denoising3d_chw(y.permute(2, 0, 1), 0.1, 20).permute(1, 2, 0)
     assert float((got3 - ref3).abs().max()) <= 1e-5
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL world on the card (create_mesh starts it) and its
+    "space" mesh; the world ends with the test."""
+    import torch.distributed as dist
+
+    from dprox_tpu_torch.parallel import create_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = create_mesh(("space",))
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_one_rank_nccl_world_distributed_fft_and_sharded_denoise(cuda, nccl_mesh):
+    """The parallel layer's collectives on NCCL: the distributed FFT pair
+    (one all-to-all each way) against torch.fft.fftn at
+    tests/test_parallel.py's tolerances (1e-4, round trip 1e-5) plus 1e-6
+    of the value (cuFFT's 2-D transform and the row / column passes round
+    the 1029 of the DC term one float32 ulp, 1.2e-4, apart), and
+    sharded_denoise against the unsharded call (2e-5)."""
+    import torch.distributed as dist
+
+    from dprox_tpu_torch.parallel import sharded_denoise
+    from dprox_tpu_torch.parallel.fft import make_distributed_fft2
+
+    assert dist.get_backend() == "nccl" and nccl_mesh.device_type == "cuda"
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(2, 3, 64, 32).astype(np.float32)).to(cuda)
+    z = x + 1j * torch.from_numpy(rng.rand(2, 3, 64, 32).astype(np.float32)).to(cuda)
+    fft2, ifft2 = make_distributed_fft2(nccl_mesh, "space")
+    for v in (x, z):
+        F = fft2(v)
+        assert F.to_local().is_cuda
+        torch.testing.assert_close(F.full_tensor(), torch.fft.fftn(v, dim=(-2, -1)),
+                                   atol=1e-4, rtol=1e-6)
+        assert float((ifft2(F).full_tensor() - v).abs().max()) <= 1e-5
+    den = dp.get_denoiser("tiny_ffdnet").to(cuda)
+    noisy = torch.from_numpy(rng.rand(1, 1, 256, 256).astype(np.float32)).to(cuda)
+    y = sharded_denoise(lambda blk: den.denoise(blk, 0.1), noisy, nccl_mesh, halo=16)
+    assert float((y.full_tensor() - den.denoise(noisy, 0.1)).abs().max()) <= 2e-5
+
+
+def test_cuda_mesh_over_a_gloo_group_raises(cuda):
+    """Collectives on CUDA tensors never route through the host: a cuda
+    mesh needs an NCCL process group."""
+    import torch.distributed as dist
+
+    from dprox_tpu_torch.parallel import create_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="a cuda mesh needs a nccl process group"):
+            create_mesh(("space",))
+    finally:
+        dist.destroy_process_group()

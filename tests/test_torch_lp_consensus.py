@@ -182,12 +182,25 @@ def test_sparse_operator_fallback_runs_the_same_solve(monkeypatch):
     np.testing.assert_allclose(z1, z2, atol=1e-8)
 
 
+@pytest.fixture(scope="module")
+def not_dividing(tmp_path_factory):
+    """Each entry's error in a 2-rank gloo world on 3 scenarios
+    (tests/torch_parallel_worker.py::mesh_not_dividing)."""
+    import json
+
+    import torch_parallel_worker as worker
+
+    work = tmp_path_factory.mktemp("mesh_not_dividing")
+    worker.run_world(worker.mesh_not_dividing, 2, work, 16, 4, 3)
+    with open(work / "mesh_not_dividing.json") as f:
+        return json.load(f)
+
+
 @pytest.mark.parametrize("entry", ["solve", "solve_fused", "solve_consensus_lp"])
-def test_mesh_argument_raises(entry):
-    inst = instance()
-    c, A_ub, A_eq, b_ub, b_eq_s, sh = inst
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        if entry == "solve_consensus_lp":
-            lp.solve_consensus_lp(c, A_ub, b_ub, A_eq, b_eq_s, sh, mesh=object(), device="cpu")
-        else:
-            getattr(lp.ConsensusLPSolver(), entry)(scenario_lp(inst), mesh=object())
+def test_mesh_argument_raises(not_dividing, entry):
+    """A mesh whose size does not divide the scenario count raises before
+    any collective (tests/test_torch_parallel.py runs the solves over a
+    mesh)."""
+    assert not_dividing[entry].startswith(
+        "ValueError: n_scenarios=3 must divide over the 2-rank mesh axis 'scenario'"), \
+        not_dividing[entry]

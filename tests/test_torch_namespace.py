@@ -1,7 +1,7 @@
 """Namespace parity of the port against the JAX package.
 
 Each public namespace of ``dprox_tpu`` (top level, utils, linop, proxfn,
-linalg, models, algo, contrib, contrib.optic) is held against its
+linalg, models, algo, contrib, contrib.optic, parallel) is held against its
 ``dprox_tpu_torch`` counterpart: every public name the JAX package
 defines there has a same-named counterpart in the port, unless ALLOW
 below excludes it with its reason. Every submodule of both packages is
@@ -18,12 +18,10 @@ import dprox_tpu
 import dprox_tpu_torch
 
 NAMESPACES = ("", "utils", "linop", "proxfn", "linalg", "models", "algo", "contrib",
-              "contrib.optic")
+              "contrib.optic", "parallel")
 
 # (namespace, name) -> the reason the port has no same-named counterpart
 ALLOW = {
-    ("", "parallel"): "multi-device execution (the mesh, consensus, distributed FFT and "
-                      "spatial halo exchange) is ROADMAP Queue 1 item 3",
     ("models", "torch_to_flax"): "ROADMAP 'Not to be ported': the torch->flax converters are "
                                  "the wrong direction; the port loads torch checkpoints as "
                                  "they are",
