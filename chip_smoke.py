@@ -11,7 +11,9 @@ exits non-zero):
 1. build    - compile the Hopper kernels from csrc/ with nvcc.
 2. check    - hold each kernel against its plain PyTorch version on the
               card, at the main path's shapes and at odd sizes (the TV
-              kernel bit for bit, in each of its windows), and time
+              kernel bit for bit, in each of its windows; TV's backward
+              kernel against the plain adjoint at TV_CASES and the four
+              training paths' shapes, d y0 bit for bit), and time
               kernel, plain version and library call with CUDA events
               (three lines: check, check_solver_kernels, check_bsr; the
               last holds both routes of the LP operator, dense tiles and
@@ -38,9 +40,10 @@ exits non-zero):
               what the per-iteration stop test's host read costs.
    grad     - gradients through the kernels' autograd Functions at
               1x3x256x256: d loss / d (rhos, lams) of 5-iteration admm
-              solves with norm1(grad(x)) and with the TV prior, and d loss
-              / d (rho, b) of cg_pallas, each against the same computation
-              on the CPU (plain versions).
+              solves with norm1(grad(x)) and with the TV prior (TV's
+              backward kernel once a forward), and d loss / d (rho, b) of
+              cg_pallas, each against the same computation on the CPU
+              (plain versions).
 7. lp       - the energy-planning LP synthetic_cep_model(512, 16) (16912 x
               8208 constraint matrix, 324 dense 128 x 128 tiles) in float32
               through LPProblem / LPSolverADMM.solve_fused: convergence,
@@ -122,7 +125,9 @@ exits non-zero):
               1496x1496 wave grid padded to 2244x2244): its PSF and the
               PSF's gradient, a 1x3x748x748 reconstruction and a co-design
               training step (d loss / d height map, log rhos, log sigmas)
-              against the port on the CPU, with ms and peak memory; the
+              against the port on the CPU, with ms, peak memory and a
+              device profile of one step by kind of kernel (TV forward and
+              backward, cuFFT, cuDNN, the divide, the rest); the
               hybrid optic's PSF (512, 1536x1536); tests/test_optics.py's
               bilevel step (nonneg: the fused ADMM update) and the joint
               optic's step (mosaic(conv_doe), CG x-update: bdot), each
@@ -146,7 +151,8 @@ exits non-zero):
               unsharded counterpart.
 
 Between 2 and 3, phase kernels_per_call counts each wrapper's device
-kernels per call in a torch.profiler trace of ten calls; phase
+kernels per call in a torch.profiler trace of ten calls, and holds TV's
+autograd backward to its backward kernel's launches alone; phase
 check_complex holds freq_divide's complex-divisor entry against its plain
 version and the TV kernel on a complex tensor's real part.
 
@@ -363,6 +369,18 @@ TV_CASES = [((3, 512, 512), 10, False), ((3, 256, 256), 5, False), ((3, 384, 512
             ((2, 32, 128), 5, True), ((1, 33, 129), 10, False), ((2, 63, 257), 10, True),
             ((1, 64, 128), 31, False), ((2, 65, 129), 44, True), ((1, 95, 127), 5, False),
             ((2, 96, 257), 10, True), ((1, 97, 128), 44, False)]
+# TV's backward kernel: d y0 equals the plain adjoint's bits (same op
+# order), and against the adjoint run in float64 on the same clip branches
+# d y0 within 1e-6 of its largest entry (float32 rounding over the steps)
+# and d lam within 1e-5 of the gradient's largest entry (a float32 sum of
+# 2 (iterations - 1) terms a cell, each of d y0's size, in another order)
+TV_VJP_REL_TOL = 1e-6
+TV_VJP_LAM_REL_TOL = 1e-5
+# the backward's timing shapes: the tuners' (1x128x128, the "tv" prior's 5
+# iterations), the joint paths' and phase grad's, the flagship's, the
+# full-width optic's
+TV_VJP_SHAPES = [((1, 128, 128), 5), ((3, 256, 256), 5), ((3, 512, 512), 10),
+                 ((3, 748, 748), 10)]
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
 REDUCE_REL_TOL = 1e-5  # bdot and the CG tail: float32 sums in another order
 REDUCE_REL_TOL_F64 = 1e-12  # bdot in float64
@@ -376,6 +394,10 @@ BDOT_LP_ROWS = [(1, 8208), (1, 32784), (1, 520), (8, 520)]  # the LP paths' bdot
 MAIN_ITERS = 48
 NONNEG_CAP = 512
 JOINT_ITERS = 24
+# TV's backward kernel runs once for each forward launch whose output the
+# loss reaches: in an admm solve of n iterations the last prior output feeds
+# only a dual update that no later iteration reads, so autograd calls the
+# backward n - 1 times a solve
 
 # The zoo phase: values of the JAX package on the CPU, printed under "zoo" by
 #   JAX_PLATFORMS=cpu python scripts/smoke_references.py zoo
@@ -489,8 +511,13 @@ def bound(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
 def phase_build(kernels):
     t0 = time.perf_counter()
     report = kernels.build()
+    lib_max = kernels._lib("tv_denoise").dprox_tv_max_iterations()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "tv_max_iterations": kernels.tv_max_iterations(), "kernels": report})
+          "tv_max_iterations": kernels.tv_max_iterations(), "tv_max_iterations_lib": lib_max,
+          "kernels": report})
+    if lib_max != kernels.tv_max_iterations():
+        raise AssertionError(f"tv_max_iterations {kernels.tv_max_iterations()} != the "
+                             f"library's {lib_max}")
 
 
 def phase_check(kernels, dev):
@@ -520,6 +547,12 @@ def phase_check(kernels, dev):
             raise AssertionError(f"tv_denoise_chw {shape} it={it}: max|diff| {err} (limit "
                                  f"{TV_TOL}), not bit-equal to the plain version, or a "
                                  f"window differs: {dict(zip(fits, same))}")
+
+    vjp_cases = [tv_vjp_case(kernels, rng, shape, it, per_plane, dev)
+                 for shape, it, per_plane in TV_CASES + [
+                     (s_, i_, False) for s_, i_ in TV_VJP_SHAPES
+                     if (s_, i_, False) not in TV_CASES]]
+    vjp_cases.append(tv_vjp_case(kernels, rng, (3, 64, 200), 10, True, dev, tie=True))
 
     # the flagship's divide operands: |OTF|^2 of its PSF and one rho
     from dprox_tpu_torch.linop import Variable, conv
@@ -581,6 +614,19 @@ def phase_check(kernels, dev):
           **{k: main_tv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
           "library_ms": None, "max_abs_err_all_cases": max(c["max_abs_err"] for c in tv_cases),
           "at_main_shape": main_tv, "at_joint_shape": tv_at[(3, 256, 256)]}
+    vjp_at = {shape: tv_vjp_timing(kernels, rng, shape, it, vjp_cases, dev)
+              for shape, it in TV_VJP_SHAPES}
+    main_vjp = vjp_at[(3, 748, 748)]
+    vjp = {"name": "tv_denoise_chw_vjp", "route": "cuda",
+           "source": "dprox_tpu_torch/csrc/tv_denoise.cu",
+           "replaces": "dprox_tpu/ops/pallas_kernels.py:388",
+           **{k: main_vjp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None,
+           "of": "the backward of tv_denoise_chw_pallas (no Pallas VJP: the JAX package "
+                 "differentiates its jnp reference); plain_ms is autograd through the plain "
+                 "version on the card (its forward and backward)",
+           "max_abs_err_all_cases": max(c["dy_max_abs_err"] for c in vjp_cases),
+           "at": {"x".join(map(str, k)): v for k, v in vjp_at.items()}}
     F, diag, rho, err = main_div
     n = F.numel()
     div_bound = bound(8 * n + 4 * diag.numel() + 4 * rho.numel() + 8 * n, 6 * n)
@@ -594,13 +640,89 @@ def phase_check(kernels, dev):
            "library_ms": time_ms(lambda: (F + 1e-7) / (diag + rho + 1e-7))}
     eager_ms = {"tv_denoise_chw": main_tv["eager_ms"],
                 "freq_divide": time_ms(lambda: kernels.freq_divide(F, diag, rho), graph=False)}
-    emit({"phase": "check", "tv_cases": tv_cases, "divide_cases": div_cases,
+    emit({"phase": "check", "tv_cases": tv_cases, "tv_vjp_cases": vjp_cases,
+          "divide_cases": div_cases,
           "timing_shapes": {"tv_denoise_chw": [3, 512, 512, 10],
                             "tv_denoise_chw.at_joint_shape": [3, 256, 256, 5],
                             "freq_divide": [1, 3, 512, 512]},
           "timing": "CUDA-graph replay, median of 30 x 10 calls",
-          "measured": [tv, div], "eager_ms_with_host_overhead": eager_ms})
-    return [tv, div]
+          "measured": [tv, vjp, div], "eager_ms_with_host_overhead": eager_ms})
+    return [tv, vjp, div]
+
+
+def tv_vjp_case(kernels, rng, shape, it, per_plane, dev, tie=False):
+    """TV's forward with its clip codes and the backward kernel against the
+    plain version and the plain adjoint (tv_denoise_chw_vjp_plain) in every
+    window the count fits: the forward's and d y0's bits, d y0 and d lam
+    against the adjoint in float64 on the same branches, two calls' bits.
+    ``tie``: lam = 0 on a piecewise-constant image (max and min tie where
+    it is flat)."""
+    if tie:
+        blocks = rng.randint(0, 3, (shape[0], -(-shape[1] // 8), -(-shape[2] // 8)))
+        y = np.kron(blocks, np.ones((1, 8, 8)))[:, :shape[1], :shape[2]]
+        lam = np.zeros(shape[0] if per_plane else 1)
+    else:
+        y, lam = rng.rand(*shape), 0.02 + 0.1 * rng.rand(shape[0] if per_plane else 1)
+    y, lam = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (y, lam))
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    ref = kernels.tv_denoise_chw_plain(y, lam, it)
+    rdy, _ = kernels.tv_denoise_chw_vjp_plain(y, lam, it, g)
+    dy64, dlam64 = kernels.tv_denoise_chw_vjp_plain(y, lam, it, g.double())
+    scale = max(float(dy64.abs().max()), float(dlam64.abs().max()), 1e-30)
+    fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS) if warps * rows > 2 * it]
+    rec = {"shape": list(shape), "iterations": it, "lam_per_plane": per_plane, "tie": tie,
+           "windows": fits, "forward_bit_equal": True, "dy_bit_equal": True,
+           "repeat_bit_equal": True, "dy_max_abs_err": 0.0, "dy_rel_err_f64": 0.0,
+           "dlam_rel_err_f64": 0.0}
+    for i in fits:
+        out, codes = kernels._tv_launch(y, lam, it, i, codes=True)
+        dy, dlam = kernels._tv_vjp_launch(codes, lam, it, g)
+        dy2, dlam2 = kernels._tv_vjp_launch(codes, lam, it, g)
+        torch.cuda.synchronize()
+        rec["forward_bit_equal"] &= torch.equal(out, ref)
+        rec["dy_bit_equal"] &= torch.equal(dy, rdy)
+        rec["repeat_bit_equal"] &= torch.equal(dy, dy2) and torch.equal(dlam, dlam2)
+        rec["dy_max_abs_err"] = max(rec["dy_max_abs_err"], float((dy - rdy).abs().max()))
+        rec["dy_rel_err_f64"] = max(rec["dy_rel_err_f64"], float(
+            (dy.double() - dy64).abs().max() / dy64.abs().max().clamp(min=1e-300)))
+        rec["dlam_rel_err_f64"] = max(rec["dlam_rel_err_f64"],
+                                      float((dlam.double() - dlam64).abs().max()) / scale)
+    if not (rec["forward_bit_equal"] and rec["dy_bit_equal"] and rec["repeat_bit_equal"]
+            and rec["dy_rel_err_f64"] <= TV_VJP_REL_TOL
+            and rec["dlam_rel_err_f64"] <= TV_VJP_LAM_REL_TOL):
+        raise AssertionError(f"tv_denoise_chw_vjp: {rec} (limits {TV_VJP_REL_TOL}, "
+                             f"{TV_VJP_LAM_REL_TOL})")
+    return rec
+
+
+def tv_vjp_timing(kernels, rng, shape, it, cases, dev):
+    """The backward kernel's time at a path's shape (CUDA-graph replay and
+    eager) beside its bound, the forward with and without the clip codes,
+    autograd through the plain version on the card (its forward and
+    backward: a backward without the kernel) and the plain adjoint,
+    eager."""
+    y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+    lam = torch.full((1,), 0.05, device=dev)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    _, codes = kernels._tv_launch(y, lam, it, codes=True)
+    yr = y.clone().requires_grad_()
+    n = y.numel()
+    # the codes (a byte a cell a live iteration) and g in, d y0 out; ~18
+    # float operations a cell a step
+    b = bound((it - 1) * n + 4 * n + 4 * n + 8, 18 * n * (it - 1))
+    return {"shape": list(shape), "iterations": it,
+            "max_abs_err": next(c["dy_max_abs_err"] for c in cases
+                                if c["shape"] == list(shape) and c["iterations"] == it),
+            "ms": time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g)),
+            "eager_ms": time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g), graph=False),
+            "bound_ms": b[0], "bound_by": b[1], "launches_per_call": it,
+            "forward_ms": time_ms(lambda: kernels._tv_launch(y, lam, it)),
+            "forward_with_codes_ms": time_ms(lambda: kernels._tv_launch(y, lam, it, codes=True)),
+            "plain_ms": time_ms(lambda: torch.autograd.grad(
+                kernels.tv_denoise_chw_plain(yr, lam, it), yr, g), 10, 2, graph=False),
+            "plain_adjoint_ms": time_ms(
+                lambda: kernels.tv_denoise_chw_vjp_plain(y, lam, it, g), 10, 2, graph=False),
+            "codes_mb": codes.numel() / 2**20}
 
 
 def flagship(dp, dev, size=512):
@@ -1116,7 +1238,7 @@ def phase_grad(dp, kernels, dev, card):
     runs = {"admm_norm1": (lambda d: admm_grads(d, "norm1"), ("rhos", "lams"),
                            ("freq_divide", "fused_admm_update")),
             "admm_tv": (lambda d: admm_grads(d, "tv"), ("rhos", "lams"),
-                        ("freq_divide", "tv_denoise_chw")),
+                        ("freq_divide", "tv_denoise_chw", "tv_denoise_chw_vjp")),
             "cg_pallas": (cg_grads, ("rho", "b"), ("fused_cg_tail", "bdot"))}
     results, failed = {}, []
     for name, (run, wrt, kernels_used) in runs.items():
@@ -1136,9 +1258,12 @@ def phase_grad(dp, kernels, dev, card):
                          "output_has_grad_fn": has_graph, "seconds": seconds,
                          "launches": {k: launches[k] for k in kernels_used}}
         r = results[name]
+        # TV's backward kernel for each forward but the solve's last
         if not (has_graph and r["finite"] and all(v > 0 for v in r["grad_abs_sum"].values())
                 and all(v <= GRAD_REL_TOL for v in rel.values())
-                and all(v > 0 for v in r["launches"].values())):
+                and all(v > 0 for v in r["launches"].values())
+                and launches["tv_denoise_chw_vjp"] == (len(rhos0) - 1) * (
+                    "tv_denoise_chw" in kernels_used)):
             failed.append(name)
     emit({"phase": "grad", "config": "1x3x256x256; admm, 5 iterations, loss mean((x - img)^2) "
           "w.r.t. the rhos and lams schedules; cg_pallas 10 iterations (rtol 0) on the joint "
@@ -1146,7 +1271,8 @@ def phase_grad(dp, kernels, dev, card):
           "of": "max |g_cuda - g_cpu| / max |g_cpu|", "runs": results, "card": card})
     if failed:
         raise AssertionError(f"grad: {failed} missing, zero, non-finite, more than "
-                             f"{GRAD_REL_TOL} off the CPU, or launched no kernel")
+                             f"{GRAD_REL_TOL} off the CPU, launched no kernel, or TV's "
+                             "backward not once a forward")
 
 
 def equilibrated_cep(n_periods, n_tech):
@@ -1446,6 +1572,8 @@ def phase_kernels_per_call(kernels, dev):
     y = torch.from_numpy(rng.rand(3, 256, 256).astype(np.float32)).to(dev)
     y512 = torch.from_numpy(rng.rand(3, 512, 512).astype(np.float32)).to(dev)
     lam = torch.full((1,), 0.05, device=dev)
+    _, codes = kernels._tv_launch(y, lam, 5, codes=True)
+    _, codes512 = kernels._tv_launch(y512, lam, 10, codes=True)
     F = torch.from_numpy((rng.randn(1, 3, 256, 256) + 1j * rng.randn(1, 3, 256, 256))
                          .astype(np.complex64)).to(dev)
     one = torch.ones((), device=dev)
@@ -1461,6 +1589,8 @@ def phase_kernels_per_call(kernels, dev):
     calls = {
         "tv_denoise_chw": lambda: kernels.tv_denoise_chw(y, lam, 5),
         "tv_denoise_chw 3x512x512x10": lambda: kernels.tv_denoise_chw(y512, lam, 10),
+        "tv_denoise_chw_vjp": lambda: kernels._tv_vjp_launch(codes, lam, 5, y),
+        "tv_denoise_chw_vjp 3x512x512x10": lambda: kernels._tv_vjp_launch(codes512, lam, 10, y512),
         "freq_divide": lambda: kernels.freq_divide(F, one, one),
         "fused_admm_update": lambda: kernels.fused_admm_update(x, r, lam, "nonneg"),
         "bdot": lambda: kernels.bdot(v, v),
@@ -1483,15 +1613,39 @@ def phase_kernels_per_call(kernels, dev):
         seen += sum(names.values())
         per_call[name] = {"kernels_per_call": sum(names.values()) / 10,
                           "names": {k: c / 10 for k, c in names.items()}}
+    # the autograd backward of a TV forward made under grad, at the tuners'
+    # and the full-width optic's shapes: only the backward kernel's launches
+    backward_only = {}
+    for shape, it in ((1, 128, 128), 5), ((3, 748, 748), 10):
+        yr = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev).requires_grad_()
+        g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+        torch.autograd.grad(kernels.tv_denoise_chw(yr, lam, it), yr, g)  # warm
+        out = kernels.tv_denoise_chw(yr, lam, it)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, yr, g)
+            torch.cuda.synchronize()
+        names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        seen += sum(names.values())
+        backward_only["x".join(map(str, shape + (it,)))] = dict(names)
     emit({"phase": "kernels_per_call", "calls": 10,
           "trace": "torch.profiler, CUDA activity" if seen else
                    "the profiler recorded no device events: kernels per call not measured",
-          "per_call": per_call if seen else None})
+          "per_call": per_call if seen else None,
+          "tv_autograd_backward_device_kernels": backward_only if seen else None})
     if seen:
         for name, want in (("bdot", 1), ("bdot 1x3x256x256", 2), ("fused_cg_tail", 3),
-                           ("tv_denoise_chw", 1), ("tv_denoise_chw 3x512x512x10", 1)):
+                           ("tv_denoise_chw", 1), ("tv_denoise_chw 3x512x512x10", 1),
+                           ("tv_denoise_chw_vjp", 5), ("tv_denoise_chw_vjp 3x512x512x10", 10)):
             if per_call[name]["kernels_per_call"] != want:
                 raise AssertionError(f"{name}: {per_call[name]} device kernels a call, not {want}")
+        for key, names in backward_only.items():
+            other = {k: v for k, v in names.items()
+                     if "tv_vjp" not in k and not k.startswith("Memset")}
+            if other or sum(v for k, v in names.items() if "tv_vjp" in k) != int(
+                    key.split("x")[-1]):
+                raise AssertionError(f"TV's autograd backward at {key} launched {names}: "
+                                     "only the backward kernel's launches expected")
 
 
 def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
@@ -2934,8 +3088,8 @@ def phase_special(dp, kernels, dev, card):
             launches_are(name, counts, dict.fromkeys(used, n))
         elif name == "unrolled_train_4_steps":  # one gradient, then 4 steps: 5 x 4 iterations
             launches_are(name, counts, dict.fromkeys(used, 20))
-        else:
-            launches_are(name, counts, dict.fromkeys(used, 30))
+        else:  # the tuner's 30 iterations; TV's backward for all but the last
+            launches_are(name, counts, dict.fromkeys(used, 30) | {"tv_denoise_chw_vjp": 29})
         records[name] = rec
         by_path[name] = counts
         if not (rec["finite"] and all(v <= GRAD_REL_TOL for v in rel.values())):
@@ -2946,8 +3100,14 @@ def phase_special(dp, kernels, dev, card):
     _, step_s, _ = timed(lambda: color_step(dev))
     records["deq_deconv_train_step"]["step_ms"] = step_s * 1e3
     dataset = [{"x0": x0, "gt": s["gt"], **s["params"]}]
-    _, train_s, _ = timed(lambda: tuner.train(dataset, epochs=1, log_every=0))
+    _, train_s, counts = timed(lambda: tuner.train(dataset, epochs=1, log_every=0))
     records["autotune_csmri_train_step"]["train_step_ms"] = train_s * 1e3
+    records["autotune_csmri_train_step"]["train_launches"] = {k: v for k, v in counts.items() if v}
+    records["autotune_csmri_train_step"]["train_device_profile"] = _step_profile(
+        lambda: tuner.train(dataset, epochs=1, log_every=0))
+    by_path["autotune_csmri_train"] = counts
+    launches_are("autotune_csmri train", counts, {"tv_denoise_chw": 30,
+                                                  "tv_denoise_chw_vjp": 29})
     gt, y, psf = deq_observation(*DEQ_DECONV_CELLS[0], 77, dev)
     sn = DEQ_DECONV_CELLS[0][1]
     p = dict(params, psf=psf, y=y)
@@ -2986,8 +3146,9 @@ def phase_special(dp, kernels, dev, card):
         r24, l24 = rho.expand(24), lam.expand(24)
         admm_obs = _marginal(lambda k: solver.solve(x0=y, rhos=r24[:k], lams=l24[:k], max_iter=k,
                                                     params=p), 8, 24, reps=3, estimates=3)
-    # TV's backward recomputes the plain version under autograd: its cost at
-    # the tuners' shape (1x128x128, the "tv" prior's 5 iterations)
+    # TV forward and backward kernels at the tuners' shape (1x128x128, the
+    # "tv" prior's 5 iterations), eager, beside autograd through the plain
+    # version (a backward without the kernel)
     v = torch.rand(1, 128, 128, device=dev, requires_grad=True)
     lam_tv = torch.full((1,), 0.05, device=dev)
     timing["tv_forward_ms"] = time_ms(lambda: kernels.tv_denoise_chw(v.detach(), lam_tv, 5),
@@ -2995,6 +3156,9 @@ def phase_special(dp, kernels, dev, card):
     timing["tv_forward_backward_ms"] = time_ms(
         lambda: torch.autograd.grad(kernels.tv_denoise_chw(v, lam_tv, 5).sum(), v), 10, 3,
         graph=False)
+    timing["tv_plain_forward_backward_ms"] = time_ms(
+        lambda: torch.autograd.grad(kernels.tv_denoise_chw_plain(v, lam_tv, 5).sum(), v), 10,
+        3, graph=False)
     timing.update(deq_its_per_sec=statistics.median(deq_obs), deq_obs=deq_obs,
                   admm_its_per_sec=statistics.median(admm_obs), admm_obs=admm_obs,
                   span="8-24", statistic="median of 3 best-of-3")
@@ -3496,6 +3660,46 @@ def _peak_mb(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
+# a device kernel's share of a training step, by its name: TV's forward and
+# backward kernels, cuFFT, cuDNN's convolutions, the divide kernel, the rest
+STEP_KINDS = (("tv_forward", ("tv_denoise_chw_kernel",)), ("tv_backward", ("tv_vjp",)),
+              ("fft", ("fft",)), ("freq_divide", ("freq_divide",)),
+              ("convolution", ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad", "winograd",
+                               "implicit", "sm90_", "cutlass")))
+
+
+def _step_profile(fn):
+    """One run of ``fn`` under torch.profiler: the device kernels' summed ms
+    by STEP_KINDS, their count, the ten costliest of the rest by name, and
+    the host ms of the run; None where the profiler recorded no device
+    event."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None
+    by_kind, rest, counts = defaultdict(float), defaultdict(float), defaultdict(int)
+    for e in ev:
+        low = e.name.lower()
+        kind = next((k for k, keys in STEP_KINDS if any(key in low for key in keys)), "other")
+        by_kind[kind] += e.device_time / 1e3
+        counts[kind] += 1
+        if kind == "other":
+            rest[e.name[:80]] += e.device_time / 1e3
+    return {"device_ms": sum(by_kind.values()), "host_ms_under_profiler": host_ms,
+            "ms_by_kind": dict(by_kind), "kernels_by_kind": dict(counts),
+            "other_top10_ms": dict(sorted(rest.items(), key=lambda kv: -kv[1])[:10])}
+
+
 def phase_optic(dp, kernels, dev, card):
     """The DOE co-design (contrib.optic) on the card: the DOE_GOLDEN crops
     through the shipped optic and the Fresnel baseline against JAX-CPU; the
@@ -3634,9 +3838,12 @@ def phase_optic(dp, kernels, dev, card):
                 "grad_limit": GRAD_REL_TOL, "launches": launches, "peak_mb": peak_mb,
                 "step_ms": _best_ms(lambda: doe_train_step(fmodel, fsolver, tparams_d, gt_d,
                                                            noise_d), 3)}
+    step_rec["device_profile"] = _step_profile(
+        lambda: doe_train_step(fmodel, fsolver, tparams_d, gt_d, noise_d))
     if not (step_rec["loss_rel_err"] <= OPTIC_LOSS_REL_TOL
             and all(v <= GRAD_REL_TOL for v in step_rec["grad_rel_err"].values())
-            and launches == dict.fromkeys(launches, 0) | per_solve):
+            and launches == dict.fromkeys(launches, 0) | per_solve
+            | {"tv_denoise_chw_vjp": DOE_ITERS - 1}):
         failed.append(f"full-width training step: {step_rec}")
     records["full_train_step"] = step_rec
     del fmodel, fsolver, cmodel, csolver, step_d, step_c
@@ -3704,7 +3911,8 @@ def phase_optic(dp, kernels, dev, card):
                                                           patch, n), 3)}
     if not (joint["loss_rel_err"] <= OPTIC_LOSS_REL_TOL
             and all(v <= GRAD_REL_TOL for v in joint["grad_rel_err"].values())
-            and launches["bdot"] > 0 and launches["tv_denoise_chw"] == n):
+            and launches["bdot"] > 0 and launches["tv_denoise_chw"] == n
+            and launches["tv_denoise_chw_vjp"] == n - 1):
         failed.append(f"joint optic step: {joint}")
     records["joint_step"] = joint
     emit({"phase": "optic", "config": "DOE_GOLDEN crops 1x3x128x128 (wave 256^2, sensor 80 mm, "
@@ -3782,12 +3990,14 @@ def main() -> int:
         by_path.update(phase())
         lap(name)
     emit({"phase": "seconds", "by_phase": seconds, "total": sum(seconds.values())})
-    # each kernel's count on the main-path solve that is its own; bsr_matvec
+    # each kernel's count on the main-path solve that is its own (TV's
+    # backward: the full-width optic's training step); bsr_matvec
     # has none: every operator a path builds moves fewer bytes as compressed
     # rows (BSRMat.route), and phase check_bsr holds the tile kernel; nor
     # has freq_divide's complex-divisor entry: no path builds a complex
     # divisor (a BlackBox's gram diagonal is |d|^2), check_complex holds it
-    own = {"tv_denoise_chw": "flagship", "freq_divide": "flagship",
+    own = {"tv_denoise_chw": "flagship", "tv_denoise_chw_vjp": "optic_full_train_step",
+           "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
            "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": None, "csr_matvec": "lp",
            "freq_divide_complex": None}

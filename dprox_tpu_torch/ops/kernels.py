@@ -36,13 +36,18 @@ tensor it launches its kernel or raises. Each wrapper counts its launches in its
 Gradients: on CPU tensors the plain versions are differentiable as they
 are. On the card, where grad is enabled and an input requires it, each
 wrapper but the sparse products runs as a ``torch.autograd.Function``
-whose forward is the kernel (the same one launch) and whose backward is
-written in PyTorch ops, as the JAX package differentiates its jnp
-references: the closed-form VJPs ``freq_divide_vjp``,
-``fused_admm_update_vjp`` (a tie takes half, as ``jnp.maximum`` gives) and
-``fused_cg_tail_vjp``, ``bdot``'s products, and for ``tv_denoise_chw`` the
-plain version's VJP by recomputation. ``BSRMat`` gives the sparse
-products their backward (the transposed apply).
+whose forward is the kernel (the same one launch). ``tv_denoise_chw``'s
+backward is a kernel too, ``tv_denoise_chw_vjp`` (csrc/tv_denoise.cu): the
+forward writes each dual's clip branch per iteration and the backward runs
+the adjoint recursion from them, one launch a step; its plain version
+``tv_denoise_chw_vjp_plain`` is the same recursion in tensor ops (the JAX
+package differentiates its jnp reference; the Pallas kernel has no VJP).
+The others' backwards are written in PyTorch ops, as the JAX package
+differentiates its jnp references: the closed-form VJPs
+``freq_divide_vjp``, ``fused_admm_update_vjp`` (a tie takes half, as
+``jnp.maximum`` gives) and ``fused_cg_tail_vjp``, and ``bdot``'s products.
+``BSRMat`` gives the sparse products their backward (the transposed
+apply).
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.tv import tv_denoising_chw
+from ..models.tv import _clip, _dh_w, _dht_w, _dv_w, _dvt_w, _lam, tv_denoising_chw
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -72,9 +77,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "tv_denoise": {
-        "dprox_tv_denoise_chw": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "dprox_tv_denoise_chw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "dprox_tv_max_iterations": [],
         "dprox_tv_window": [_I, _I, _I, _I],
+        "dprox_tv_vjp_workspace": [_I, _I, _I],
+        "dprox_tv_vjp": [_P, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "freq_divide": {
         "dprox_freq_divide": [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL,
@@ -109,6 +116,8 @@ _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
                  "cg_tail": "dprox_cg_tail_error_string",
                  "bsr_matvec": "dprox_bsr_matvec_error_string",
                  "csr_matvec": "dprox_csr_matvec_error_string"}
+
+_RESTYPES = {"dprox_tv_vjp_workspace": ctypes.c_longlong}  # the others return int
 
 _libs: dict = {}  # name -> loaded ctypes.CDLL
 
@@ -169,7 +178,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         err_fn = getattr(lib, _ERROR_STRING[name])
         err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
         _libs[name] = lib
@@ -230,8 +239,8 @@ TV_WINDOWS = ((8, 4), (8, 12))
 def tv_max_iterations() -> int:
     """Largest ``iterations`` the TV kernel takes in one launch (its halo
     of ``iterations`` cells must leave at least one output row in its
-    tallest window)."""
-    return _lib("tv_denoise").dprox_tv_max_iterations()
+    tallest window; csrc/tv_denoise.cu's ``dprox_tv_max_iterations``)."""
+    return (max(warps * rows for warps, rows in TV_WINDOWS) - 1) // 2
 
 
 def tv_window(planes: int, H: int, W: int, iterations: int) -> int:
@@ -245,9 +254,12 @@ def _requires_grad(*ts) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
-def _tv_launch(y0, lam, iterations, window: int = -1) -> torch.Tensor:
+def _tv_launch(y0, lam, iterations, window: int = -1, codes: bool = False):
     """One launch of the TV kernel; ``window`` indexes ``TV_WINDOWS``, -1
-    lets the kernel pick (``tv_window``)."""
+    lets the kernel pick (``tv_window``). With ``codes`` it returns (the
+    output, the clip codes ``tv_denoise_chw_vjp`` reads: [iterations - 1,
+    planes, H, W rounded up to 4] uint8, a byte a cell an iteration) from
+    the same launch."""
     _cuda_tensor(y0, "y0", torch.float32, y0.device, ndim=3)
     planes, H, W = y0.shape
     per_plane = _per_item_scalar(lam, "lam", planes, y0.device)
@@ -261,35 +273,68 @@ def _tv_launch(y0, lam, iterations, window: int = -1) -> torch.Tensor:
         raise ValueError(f"window {TV_WINDOWS[window]} leaves no output row at "
                          f"{iterations} iterations")
     out = torch.empty_like(y0)
+    code = (torch.empty((iterations - 1, planes, H, -(-W // 4) * 4), dtype=torch.uint8,
+                        device=y0.device) if codes else None)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib("tv_denoise").dprox_tv_denoise_chw(
             y0.data_ptr(), lam.data_ptr(), per_plane, out.data_ptr(),
+            code.data_ptr() if codes and code.numel() else None,
             planes, H, W, iterations, window, stream)
     _check(err, "tv_denoise", "tv_denoise_chw")
     tv_denoise_chw.launches += 1
-    return out
+    return (out, code) if codes else out
+
+
+def _tv_vjp_launch(codes, lam, iterations, g):
+    """The backward kernel: (d y0, d lam in lam's shape) for the cotangent
+    ``g`` of a forward whose launch wrote ``codes`` (``_tv_launch(...,
+    codes=True)``). ``g`` is read through its strides (an expanded or
+    strided cotangent costs no copy)."""
+    iterations = int(iterations)
+    _cuda_tensor(codes, "codes", torch.uint8, codes.device, ndim=4)
+    _cuda_tensor(g, "g", torch.float32, codes.device, ndim=3, contiguous=False)
+    planes, H, W = g.shape
+    if tuple(codes.shape) != (iterations - 1, planes, H, -(-W // 4) * 4):
+        raise ValueError(f"codes of shape {tuple(codes.shape)} are not those of {iterations} "
+                         f"iterations on g's shape {tuple(g.shape)}")
+    per_plane = _per_item_scalar(lam, "lam", planes, codes.device)
+    lib = _lib("tv_denoise")
+    work = torch.empty(lib.dprox_tv_vjp_workspace(planes, H, W), dtype=torch.float32,
+                       device=codes.device)
+    dy = torch.empty((planes, H, W), dtype=torch.float32, device=codes.device)
+    dlam = torch.empty(planes if per_plane else 1, dtype=torch.float32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dprox_tv_vjp(codes.data_ptr() if codes.numel() else None, g.data_ptr(),
+                               *g.stride(), per_plane, dy.data_ptr(), dlam.data_ptr(),
+                               work.data_ptr(), planes, H, W, iterations, stream)
+    _check(err, "tv_denoise", "tv_denoise_chw_vjp")
+    tv_denoise_chw_vjp.launches += 1
+    return dy, dlam.reshape(lam.shape)
 
 
 class _TVFn(torch.autograd.Function):
-    """The kernel's forward. The backward is the VJP of the plain version,
-    recomputed from the saved inputs under autograd: the JAX package has
-    no backward kernel either (it differentiates its reference). This
-    recomputation is the one place where plain ops run on the card on a
-    kernel's behalf; a hand-written TV backward is later work."""
+    """The kernel's forward, which also keeps each dual's clip branch per
+    iteration, and the backward kernel (``_tv_vjp_launch``). Not twice
+    differentiable: no path of the port takes a double backward."""
 
     @staticmethod
     def forward(ctx, y0, lam, iterations):
-        ctx.save_for_backward(y0, lam)
+        out, codes = _tv_launch(y0, lam, iterations, codes=True)
+        ctx.save_for_backward(codes, lam)
         ctx.iterations = iterations
-        return _tv_launch(y0, lam, iterations)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        y0, lam = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = tv_denoise_chw_plain(y0, lam, ctx.iterations)
-            return (*torch.autograd.grad(out, (y0, lam), g), None)
+        if torch.is_grad_enabled():  # create_graph=True
+            raise RuntimeError("tv_denoise_chw's backward kernel is not differentiable: "
+                               "no double backward (create_graph=True)")
+        codes, lam = ctx.saved_tensors
+        dy, dlam = _tv_vjp_launch(codes, lam, ctx.iterations, g)
+        return (dy if ctx.needs_input_grad[0] else None,
+                dlam if ctx.needs_input_grad[1] else None, None)
 
 
 def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
@@ -298,7 +343,8 @@ def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
     ``lam``: float32 device tensor holding one value or one per plane. On
     CPU tensors this is ``models.tv.tv_denoising_chw``. On the card, with
     grad enabled and ``y0`` or ``lam`` requiring it, the output carries the
-    plain version's gradient (``_TVFn``); the forward is the kernel either way.
+    gradient of the backward kernel (``_TVFn``, ``tv_denoise_chw_vjp``); the
+    forward is one kernel launch either way.
     """
     if _on_cpu(y0):
         return tv_denoise_chw_plain(y0, lam, iterations)
@@ -308,6 +354,71 @@ def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
 
 
 tv_denoise_chw.launches = 0
+
+
+def _tv_clip_vjp(p, t, c):
+    """VJP of ``models.tv._clip`` (``minimum(maximum(p, -t), t)``) at the
+    pre-clip value ``p`` for the cotangent ``c``: (p's cotangent, t's), as
+    torch.maximum / torch.minimum's backward gives them (the winning side
+    takes c, a tie gives each side c / 2, as jnp.maximum does); in
+    csrc/tv_denoise.cu's ``clip_vjp`` order."""
+    m = torch.maximum(p, -t)
+    zero = c.new_zeros(())
+    half = c / 2.0
+    gm = torch.where(m == t, half, torch.where(m > t, zero, c))
+    gt = torch.where(m == t, half, torch.where(m < t, zero, c))
+    gm_half = gm / 2.0
+    gp = torch.where(p == -t, gm_half, torch.where(p < -t, zero, gm))
+    gn = torch.where(p == -t, gm_half, torch.where(p > -t, zero, gm))
+    return gp, gt - gn
+
+
+def tv_denoise_chw_vjp_plain(y0, lam, iterations: int, g):
+    """Plain PyTorch version of ``tv_denoise_chw_vjp``: (d y0, d lam) of
+    ``tv_denoise_chw_plain(y0, lam, iterations)`` for the output's
+    cotangent ``g``, by the explicit adjoint recursion in the kernel's
+    operation order (not autograd). With a = g and the pre-clip cotangents
+    q = 0, for k = iterations - 1 down to 1: q' = clip_vjp(p_{k-1}, q - D a /
+    2) for each dual, a' = D^T(0.2 q'h) + D^T(0.2 q'v), d y0 += a', d t +=
+    the clips' shares; d lam = d t / 2, in lam's shape (summed over the
+    planes where lam is one value). The clip branches come from the forward
+    in y0's dtype and the recursion runs in g's dtype, so a float64 ``g``
+    gives a float64 reference on the float32 forward's branches."""
+    t = _lam(lam, y0) / 2.0
+    zh, zv = torch.zeros_like(y0[..., 1:]), torch.zeros_like(y0[..., 1:, :])
+    pre = []  # the pre-clip duals of each live update
+    for _ in range(int(iterations) - 1):
+        x0 = ((y0 - _dht_w(zh)) + (y0 - _dvt_w(zv))) / 2.0
+        ph, pv = zh + 0.2 * _dh_w(x0), zv + 0.2 * _dv_w(x0)
+        pre.append((ph, pv))
+        zh, zv = _clip(ph, t), _clip(pv, t)
+    a = dy = g
+    qh, qv = g.new_zeros(zh.shape), g.new_zeros(zv.shape)
+    dt = g.new_zeros(y0.shape[:-2])
+    for ph, pv in reversed(pre):
+        qh, th = _tv_clip_vjp(ph, t, qh - _dh_w(a) / 2.0)
+        qv, tv = _tv_clip_vjp(pv, t, qv - _dv_w(a) / 2.0)
+        dt = dt + th.sum((-2, -1)) + tv.sum((-2, -1))
+        a = _dht_w(0.2 * qh) + _dvt_w(0.2 * qv)
+        dy = dy + a
+    lam_t = torch.as_tensor(lam)
+    dlam = (dt if lam_t.numel() > 1 else dt.sum()) / 2.0
+    return dy, dlam.reshape(lam_t.shape)
+
+
+def tv_denoise_chw_vjp(y0: torch.Tensor, lam, iterations: int, g: torch.Tensor):
+    """(d y0, d lam) of ``tv_denoise_chw(y0, lam, iterations)`` for the
+    output's cotangent ``g``. On CPU tensors, ``tv_denoise_chw_vjp_plain``;
+    on the card the forward kernel with its clip codes, then the backward
+    kernel (``iterations`` launches: one a step and the sum of d lam, in a
+    fixed order, so two calls give the same bits)."""
+    if _on_cpu(y0):
+        return tv_denoise_chw_vjp_plain(y0, lam, iterations, g)
+    _, codes = _tv_launch(y0, lam, iterations, codes=True)
+    return _tv_vjp_launch(codes, lam, iterations, g)
+
+
+tv_denoise_chw_vjp.launches = 0  # backward-kernel calls (each of ``iterations`` launches)
 
 
 # --------------------------------------------------------------------------- #
@@ -919,7 +1030,8 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, values: torch.Tensor
 
 csr_matvec.launches = 0
 
-KERNELS = {"tv_denoise_chw": tv_denoise_chw, "freq_divide": freq_divide,
+KERNELS = {"tv_denoise_chw": tv_denoise_chw, "tv_denoise_chw_vjp": tv_denoise_chw_vjp,
+           "freq_divide": freq_divide,
            "fused_admm_update": fused_admm_update, "bdot": bdot,
            "fused_cg_tail": fused_cg_tail, "bsr_matvec": bsr_matvec,
            "csr_matvec": csr_matvec}

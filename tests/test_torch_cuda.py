@@ -715,25 +715,131 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-300))
 
 
-def test_tv_gradient_is_the_plain_versions(cuda):
-    """The backward recomputes the plain version from y0 and lam under
-    autograd, so its gradients are the plain version's, bit for bit; the
-    forward is one kernel launch; without grad there is no graph."""
+def test_tv_gradient_is_the_backward_kernels_and_equals_the_plain_adjoint(cuda):
+    """Under grad the forward is one launch of the kernel (the plain
+    version's bits) and the backward one call of the backward kernel:
+    d y0 is the plain adjoint's bits (tv_denoise_chw_vjp_plain, same op
+    order), d lam within 1e-5 of the float64 adjoint's largest entry (a
+    float32 sum in another order); an expanded cotangent (from ``sum``)
+    is read in place; a double backward raises; without grad there is no
+    graph."""
     rng = np.random.RandomState(13)
     y = torch.from_numpy(rng.rand(2, 37, 53).astype(np.float32)).to(cuda).requires_grad_()
     lam = torch.tensor([0.05, 0.08], device=cuda, requires_grad=True)
     g = torch.from_numpy(rng.randn(2, 37, 53).astype(np.float32)).to(cuda)
-    before = kernels.tv_denoise_chw.launches
-    out = kernels.tv_denoise_chw(y, lam, 10)
-    assert kernels.tv_denoise_chw.launches == before + 1 and out.grad_fn is not None
-    got = torch.autograd.grad(out, (y, lam), g)
-    ref_out = kernels.tv_denoise_chw_plain(y, lam, 10)
-    ref = torch.autograd.grad(ref_out, (y, lam), g)
-    assert torch.equal(out, ref_out)
-    for a, b in zip(got, ref):
-        assert a.shape == b.shape and torch.equal(a, b)
+    for cot in (g, torch.ones((), device=cuda).expand(2, 37, 53)):
+        before = kernels.launch_counts()
+        out = kernels.tv_denoise_chw(y, lam, 10)
+        got = torch.autograd.grad(out, (y, lam), cot)
+        after = kernels.launch_counts()
+        assert out.grad_fn is not None
+        assert (after["tv_denoise_chw"] - before["tv_denoise_chw"],
+                after["tv_denoise_chw_vjp"] - before["tv_denoise_chw_vjp"]) == (1, 1)
+        assert torch.equal(out, kernels.tv_denoise_chw_plain(y.detach(), lam.detach(), 10))
+        ref = kernels.tv_denoise_chw_vjp_plain(y.detach(), lam.detach(), 10, cot)
+        ref64 = kernels.tv_denoise_chw_vjp_plain(y.detach(), lam.detach(), 10, cot.double())
+        assert got[0].shape == ref[0].shape and torch.equal(got[0], ref[0])
+        assert got[1].shape == lam.shape
+        scale = max(float(ref64[0].abs().max()), float(ref64[1].abs().max()), 1e-30)
+        assert float((got[1].double() - ref64[1]).abs().max()) <= 1e-5 * scale
+    with pytest.raises(RuntimeError, match="double backward"):
+        torch.autograd.grad(kernels.tv_denoise_chw(y, lam, 10), y, g, create_graph=True)
     with torch.no_grad():
         assert kernels.tv_denoise_chw(y, lam, 10).grad_fn is None
+
+
+def _tv_inputs(shape, per_plane, kind, seed):
+    """(y0, lam) on the card: a random image, or for "tie" a
+    piecewise-constant one with lam = 0 (max and min tie where it is flat)."""
+    rng = np.random.RandomState(seed)
+    n = shape[0] if per_plane else 1
+    if kind == "tie":
+        blocks = rng.randint(0, 3, (shape[0], -(-shape[1] // 8), -(-shape[2] // 8)))
+        y = np.kron(blocks, np.ones((1, 8, 8)))[:, :shape[1], :shape[2]]
+        lam = np.zeros(n)
+    else:
+        y, lam = rng.rand(*shape), 0.02 + 0.1 * rng.rand(n)
+    put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to("cuda")
+    return put(y), put(lam)
+
+
+@pytest.mark.parametrize("shape,iterations,per_plane,kind",
+                         [c + ("rand",) for c in TV_WINDOW_CASES]
+                         + [((3, 64, 200), 10, False, "tie"), ((2, 40, 130), 5, True, "tie"),
+                            ((3, 33, 2), 3, True, "rand"), ((1, 2, 70), 1, False, "rand")])
+def test_tv_backward_kernel_matches_plain_adjoint(cuda, shape, iterations, per_plane, kind):
+    """In every window of the forward the count fits: the forward with its
+    clip codes gives the plain version's bits; the backward gives the plain
+    adjoint's bits for d y0 and, against the adjoint run in float64 on the
+    same branches, d y0 within 1e-6 of its largest entry and d lam within
+    1e-5 of the gradient's largest entry (a float32 sum of 2 (iterations -
+    1) terms a cell in another order); two calls and a CUDA-graph replay
+    give the same bits; lam once or once per plane; the tie case."""
+    y, lam = _tv_inputs(shape, per_plane, kind, seed=21)
+    g = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(np.float32)).to(cuda)
+    ref = kernels.tv_denoise_chw_plain(y, lam, iterations)
+    rdy, rdlam = kernels.tv_denoise_chw_vjp_plain(y, lam, iterations, g)
+    dy64, dlam64 = kernels.tv_denoise_chw_vjp_plain(y, lam, iterations, g.double())
+    scale = max(float(dy64.abs().max()), float(dlam64.abs().max()), 1e-30)
+    fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS)
+            if warps * rows - 2 * iterations >= 1]
+    assert fits
+    for i in fits + [-1]:
+        out, codes = kernels._tv_launch(y, lam, iterations, i, codes=True)
+        before = kernels.tv_denoise_chw_vjp.launches
+        dy, dlam = kernels._tv_vjp_launch(codes, lam, iterations, g)
+        assert kernels.tv_denoise_chw_vjp.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), i
+        assert dlam.shape == lam.shape and torch.equal(dy, rdy), i
+        assert float((dy.double() - dy64).abs().max()) <= 1e-6 * float(dy64.abs().max()), i
+        assert float((dlam.double() - dlam64).abs().max()) <= 1e-5 * scale, i
+        again = kernels._tv_vjp_launch(codes, lam, iterations, g)
+        assert torch.equal(again[0], dy) and torch.equal(again[1], dlam)
+    replay = _replayed(lambda: kernels._tv_vjp_launch(codes, lam, iterations, g))
+    assert torch.equal(replay[0], dy) and torch.equal(replay[1], dlam)
+    if kind == "tie" and iterations > 1:
+        assert float(dlam64.abs().max()) > 0  # the ties reach d lam
+
+
+def test_tv_backward_launches_only_the_ports_kernels(cuda):
+    """A profiler trace of one backward at the joint paths' shape
+    (3x256x256, 5 iterations) holds the backward kernel's launches (4 steps
+    and the sum of d lam) and nothing else: no aten elementwise or cat
+    kernel; the Python limit equals the library's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    assert kernels.tv_max_iterations() == kernels._lib("tv_denoise").dprox_tv_max_iterations()
+    y, lam = _tv_inputs((3, 256, 256), False, "rand", seed=23)
+    y.requires_grad_()
+    g = torch.randn(3, 256, 256, device=cuda)
+    torch.autograd.grad(kernels.tv_denoise_chw(y, lam, 5), y, g)  # warm
+    out = kernels.tv_denoise_chw(y, lam, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, y, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("Memset")]
+    assert len(names) == 5 and all("tv_vjp" in n for n in names), names
+
+
+def test_tv_backward_wrapper_refusals(cuda):
+    y, lam = _tv_inputs((2, 16, 16), False, "rand", seed=24)
+    _, codes = kernels._tv_launch(y, lam, 5, codes=True)
+    g = torch.rand(2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="iterations"):
+        kernels._tv_vjp_launch(codes, lam, 4, g)
+    with pytest.raises(ValueError, match="shape"):
+        kernels._tv_vjp_launch(codes, lam, 5, g[:, :8])
+    assert codes.shape == (4, 2, 16, 16) and codes.dtype == torch.uint8
+    with pytest.raises(TypeError):
+        kernels._tv_vjp_launch(codes, lam, 5, g.double())
+    with pytest.raises(ValueError):
+        kernels._tv_vjp_launch(codes, torch.full((3,), 0.1, device=cuda), 5, g)
+    dy, dlam = kernels.tv_denoise_chw_vjp(y, lam, 5, g)
+    assert torch.equal(dy, kernels.tv_denoise_chw_vjp_plain(y, lam, 5, g)[0])
 
 
 @pytest.mark.parametrize("rho_shape,diag_shape", [((), (1, 3, 32, 40)), ((2, 1, 1, 1), ()),

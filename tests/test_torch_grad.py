@@ -218,14 +218,19 @@ def _complex(rng, *shape):
 def test_kernel_functions_backward_equals_autograd_of_plain(monkeypatch, name):
     """The wiring of the four autograd Functions the wrappers use on the
     card (saved tensors, the VJPs, one gradient per input), run here with
-    each launch replaced by its plain version: the gradients equal
+    each launch replaced by its plain version (TV's backward launch by the
+    plain adjoint, ``tv_denoise_chw_vjp_plain``): the gradients equal
     autograd's through the plain version, to 1e-6 of the largest entry
     (float32 sums in another order)."""
     rng = np.random.RandomState(3)
     shape = (2, 3, 6, 7)
     put = lambda a: torch.from_numpy(np.asarray(a))
     if name == "tv":
-        monkeypatch.setattr(kernels, "_tv_launch", kernels.tv_denoise_chw_plain)
+        # the forward keeps y0 where the kernel keeps its clip codes, and the
+        # backward launch is the plain adjoint from it
+        monkeypatch.setattr(kernels, "_tv_launch", lambda y, l, it, codes=False: (
+            kernels.tv_denoise_chw_plain(y, l, it), y))
+        monkeypatch.setattr(kernels, "_tv_vjp_launch", kernels.tv_denoise_chw_vjp_plain)
         fn, plain = (lambda y, l: kernels._TVFn.apply(y, l, 5),
                      lambda y, l: kernels.tv_denoise_chw_plain(y, l, 5))
         ins = [put(rng.rand(3, 9, 11).astype(np.float32)), put(np.float32([0.05, 0.1, 0.2]))]

@@ -159,7 +159,8 @@ def test_solver_wrappers_take_plain_version_on_cpu():
     split = kernels.csr_split(indptr)
     assert torch.equal(kernels.csr_matvec(indptr, cols, torch.ones(3), torch.arange(4.0)),
                        kernels.csr_matvec_plain(indptr, cols, torch.ones(3), torch.arange(4.0), split))
-    assert set(kernels.launch_counts()) == {"tv_denoise_chw", "freq_divide", "bsr_matvec",
+    assert set(kernels.launch_counts()) == {"tv_denoise_chw", "tv_denoise_chw_vjp",
+                                            "freq_divide", "bsr_matvec",
                                             "csr_matvec", "fused_admm_update", "bdot",
                                             "fused_cg_tail", "freq_divide_complex"}
     assert set(kernels.launch_counts().values()) == {0}
