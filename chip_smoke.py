@@ -13,7 +13,10 @@ exits non-zero):
               card, at the main path's shapes and at odd sizes (the TV
               kernel bit for bit, in each of its windows; TV's backward
               kernel against the plain adjoint at TV_CASES and the four
-              training paths' shapes, d y0 bit for bit), and time
+              training paths' shapes, d y0 bit for bit, from the forward
+              with codes of every forward window in every backward
+              window; every TV kernel's registers and spill bytes as the
+              card reports them), and time
               kernel, plain version and library call with CUDA events
               (three lines: check, check_solver_kernels, check_bsr; the
               last holds both routes of the LP operator, dense tiles and
@@ -553,6 +556,7 @@ def phase_check(kernels, dev):
                      (s_, i_, False) for s_, i_ in TV_VJP_SHAPES
                      if (s_, i_, False) not in TV_CASES]]
     vjp_cases.append(tv_vjp_case(kernels, rng, (3, 64, 200), 10, True, dev, tie=True))
+    vjp_cases.append(tv_vjp_case(kernels, rng, (2, 100, 260), 10, True, dev, smooth=True))
 
     # the flagship's divide operands: |OTF|^2 of its PSF and one rho
     from dprox_tpu_torch.linop import Variable, conv
@@ -616,6 +620,9 @@ def phase_check(kernels, dev):
           "at_main_shape": main_tv, "at_joint_shape": tv_at[(3, 256, 256)]}
     vjp_at = {shape: tv_vjp_timing(kernels, rng, shape, it, vjp_cases, dev)
               for shape, it in TV_VJP_SHAPES}
+    # the tuners' TV call before any profiler session of this process
+    # (phase special times it again after them)
+    train_call = tv_train_call_ms(kernels, dev)
     main_vjp = vjp_at[(3, 748, 748)]
     vjp = {"name": "tv_denoise_chw_vjp", "route": "cuda",
            "source": "dprox_tpu_torch/csrc/tv_denoise.cu",
@@ -624,7 +631,8 @@ def phase_check(kernels, dev):
            "library_ms": None,
            "of": "the backward of tv_denoise_chw_pallas (no Pallas VJP: the JAX package "
                  "differentiates its jnp reference); plain_ms is autograd through the plain "
-                 "version on the card (its forward and backward)",
+                 "version on the card (its forward and backward); every step in one launch, "
+                 "then the sum of d lam",
            "max_abs_err_all_cases": max(c["dy_max_abs_err"] for c in vjp_cases),
            "at": {"x".join(map(str, k)): v for k, v in vjp_at.items()}}
     F, diag, rho, err = main_div
@@ -641,6 +649,8 @@ def phase_check(kernels, dev):
     eager_ms = {"tv_denoise_chw": main_tv["eager_ms"],
                 "freq_divide": time_ms(lambda: kernels.freq_divide(F, diag, rho), graph=False)}
     emit({"phase": "check", "tv_cases": tv_cases, "tv_vjp_cases": vjp_cases,
+          "tv_kernel_attributes": kernels.tv_kernel_attributes(),
+          "tv_train_call_before_any_profiler": train_call,
           "divide_cases": div_cases,
           "timing_shapes": {"tv_denoise_chw": [3, 512, 512, 10],
                             "tv_denoise_chw.at_joint_shape": [3, 256, 256, 5],
@@ -650,17 +660,22 @@ def phase_check(kernels, dev):
     return [tv, vjp, div]
 
 
-def tv_vjp_case(kernels, rng, shape, it, per_plane, dev, tie=False):
+def tv_vjp_case(kernels, rng, shape, it, per_plane, dev, tie=False, smooth=False):
     """TV's forward with its clip codes and the backward kernel against the
-    plain version and the plain adjoint (tv_denoise_chw_vjp_plain) in every
-    window the count fits: the forward's and d y0's bits, d y0 and d lam
-    against the adjoint in float64 on the same branches, two calls' bits.
-    ``tie``: lam = 0 on a piecewise-constant image (max and min tie where
-    it is flat)."""
+    plain version and the plain adjoint (tv_denoise_chw_vjp_plain), the
+    forward in every window the count fits and, from each, the backward in
+    every backward window: the forward's and d y0's bits, the codes alike in
+    every forward window, d y0 and d lam against the adjoint in float64 on
+    the same branches, two calls' bits. ``tie``: lam = 0 on a
+    piecewise-constant image (max and min tie where it is flat);
+    ``smooth``: lam = 2 (few duals clip, so an error at a window's edge
+    would reach its output cells)."""
     if tie:
         blocks = rng.randint(0, 3, (shape[0], -(-shape[1] // 8), -(-shape[2] // 8)))
         y = np.kron(blocks, np.ones((1, 8, 8)))[:, :shape[1], :shape[2]]
         lam = np.zeros(shape[0] if per_plane else 1)
+    elif smooth:
+        y, lam = rng.rand(*shape), np.full(shape[0] if per_plane else 1, 2.0)
     else:
         y, lam = rng.rand(*shape), 0.02 + 0.1 * rng.rand(shape[0] if per_plane else 1)
     y, lam = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (y, lam))
@@ -670,24 +685,36 @@ def tv_vjp_case(kernels, rng, shape, it, per_plane, dev, tie=False):
     dy64, dlam64 = kernels.tv_denoise_chw_vjp_plain(y, lam, it, g.double())
     scale = max(float(dy64.abs().max()), float(dlam64.abs().max()), 1e-30)
     fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS) if warps * rows > 2 * it]
+    back = [i for i, (warps, rows) in enumerate(kernels.TV_VJP_WINDOWS)
+            if warps * rows > 2 * (it - 1)]
     rec = {"shape": list(shape), "iterations": it, "lam_per_plane": per_plane, "tie": tie,
-           "windows": fits, "forward_bit_equal": True, "dy_bit_equal": True,
+           "smooth": smooth, "windows": fits, "backward_windows": back,
+           "backward_window_picked": kernels.tv_vjp_window(*shape, it),
+           "forward_bit_equal": True, "codes_equal_across_windows": True, "dy_bit_equal": True,
            "repeat_bit_equal": True, "dy_max_abs_err": 0.0, "dy_rel_err_f64": 0.0,
            "dlam_rel_err_f64": 0.0}
+    first = None
     for i in fits:
         out, codes = kernels._tv_launch(y, lam, it, i, codes=True)
-        dy, dlam = kernels._tv_vjp_launch(codes, lam, it, g)
-        dy2, dlam2 = kernels._tv_vjp_launch(codes, lam, it, g)
         torch.cuda.synchronize()
         rec["forward_bit_equal"] &= torch.equal(out, ref)
-        rec["dy_bit_equal"] &= torch.equal(dy, rdy)
-        rec["repeat_bit_equal"] &= torch.equal(dy, dy2) and torch.equal(dlam, dlam2)
-        rec["dy_max_abs_err"] = max(rec["dy_max_abs_err"], float((dy - rdy).abs().max()))
-        rec["dy_rel_err_f64"] = max(rec["dy_rel_err_f64"], float(
-            (dy.double() - dy64).abs().max() / dy64.abs().max().clamp(min=1e-300)))
-        rec["dlam_rel_err_f64"] = max(rec["dlam_rel_err_f64"],
-                                      float((dlam.double() - dlam64).abs().max()) / scale)
-    if not (rec["forward_bit_equal"] and rec["dy_bit_equal"] and rec["repeat_bit_equal"]
+        first = codes if first is None else first
+        rec["codes_equal_across_windows"] &= torch.equal(codes[..., :shape[-1]],
+                                                         first[..., :shape[-1]])
+        for j in back:
+            dy, dlam = kernels._tv_vjp_launch(codes, lam, it, g, j)
+            dy2, dlam2 = kernels._tv_vjp_launch(codes, lam, it, g, j)
+            torch.cuda.synchronize()
+            rec["dy_bit_equal"] &= torch.equal(dy, rdy)
+            rec["repeat_bit_equal"] &= torch.equal(dy, dy2) and torch.equal(dlam, dlam2)
+            rec["dy_max_abs_err"] = max(rec["dy_max_abs_err"], float((dy - rdy).abs().max()))
+            rec["dy_rel_err_f64"] = max(rec["dy_rel_err_f64"], float(
+                (dy.double() - dy64).abs().max() / dy64.abs().max().clamp(min=1e-300)))
+            rec["dlam_rel_err_f64"] = max(rec["dlam_rel_err_f64"],
+                                          float((dlam.double() - dlam64).abs().max()) / scale)
+    if not (rec["forward_bit_equal"] and rec["codes_equal_across_windows"]
+            and rec["dy_bit_equal"] and rec["repeat_bit_equal"]
+            and rec["backward_window_picked"] in back
             and rec["dy_rel_err_f64"] <= TV_VJP_REL_TOL
             and rec["dlam_rel_err_f64"] <= TV_VJP_LAM_REL_TOL):
         raise AssertionError(f"tv_denoise_chw_vjp: {rec} (limits {TV_VJP_REL_TOL}, "
@@ -697,10 +724,11 @@ def tv_vjp_case(kernels, rng, shape, it, per_plane, dev, tie=False):
 
 def tv_vjp_timing(kernels, rng, shape, it, cases, dev):
     """The backward kernel's time at a path's shape (CUDA-graph replay and
-    eager) beside its bound, the forward with and without the clip codes,
-    autograd through the plain version on the card (its forward and
-    backward: a backward without the kernel) and the plain adjoint,
-    eager."""
+    eager; the window it picks and every window the count fits) beside its
+    bound, the forward with the clip codes (likewise, with its own bound)
+    and without, autograd through the plain version on the card (its
+    forward and backward: a backward without the kernel) and the plain
+    adjoint, eager."""
     y = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
     lam = torch.full((1,), 0.05, device=dev)
     g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
@@ -710,19 +738,65 @@ def tv_vjp_timing(kernels, rng, shape, it, cases, dev):
     # the codes (a byte a cell a live iteration) and g in, d y0 out; ~18
     # float operations a cell a step
     b = bound((it - 1) * n + 4 * n + 4 * n + 8, 18 * n * (it - 1))
+    # the forward with codes: y0 in, x and the codes out; 16 operations a
+    # cell an iteration and 6 for the last half-step
+    b_fwd = bound(8 * n + (it - 1) * n + 4, n * (16 * (it - 1) + 6))
+    bw = kernels.TV_VJP_WINDOWS[kernels.tv_vjp_window(*shape, it)]
+    fw = kernels.TV_WINDOWS[kernels.tv_window(*shape, it)]
     return {"shape": list(shape), "iterations": it,
             "max_abs_err": next(c["dy_max_abs_err"] for c in cases
                                 if c["shape"] == list(shape) and c["iterations"] == it),
             "ms": time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g)),
             "eager_ms": time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g), graph=False),
-            "bound_ms": b[0], "bound_by": b[1], "launches_per_call": it,
+            "bound_ms": b[0], "bound_by": b[1], "launches_per_call": 2,
+            "window": [128, bw[0] * bw[1]],
+            "ms_by_window": {f"128x{w_ * r_}": time_ms(
+                lambda j=j: kernels._tv_vjp_launch(codes, lam, it, g, j))
+                for j, (w_, r_) in enumerate(kernels.TV_VJP_WINDOWS) if w_ * r_ > 2 * (it - 1)},
             "forward_ms": time_ms(lambda: kernels._tv_launch(y, lam, it)),
             "forward_with_codes_ms": time_ms(lambda: kernels._tv_launch(y, lam, it, codes=True)),
+            "forward_with_codes_bound_ms": b_fwd[0], "forward_with_codes_bound_by": b_fwd[1],
+            "forward_window": [128, fw[0] * fw[1]],
+            "forward_with_codes_ms_by_window": {f"128x{w_ * r_}": time_ms(
+                lambda i=i: kernels._tv_launch(y, lam, it, i, codes=True))
+                for i, (w_, r_) in enumerate(kernels.TV_WINDOWS) if w_ * r_ > 2 * it},
             "plain_ms": time_ms(lambda: torch.autograd.grad(
                 kernels.tv_denoise_chw_plain(yr, lam, it), yr, g), 10, 2, graph=False),
             "plain_adjoint_ms": time_ms(
                 lambda: kernels.tv_denoise_chw_vjp_plain(y, lam, it, g), 10, 2, graph=False),
             "codes_mb": codes.numel() / 2**20}
+
+
+def tv_train_call_ms(kernels, dev):
+    """TV as a tuner's training step calls it (1x128x128, the "tv" prior's 5
+    iterations), eager, median of 10 x 3 calls: the forward, and forward +
+    backward (torch.autograd.grad of the sum, so the backward reads an
+    expanded cotangent), beside autograd through the plain version; the
+    forward + backward also with Python's garbage collector paused; and, as
+    a control, torch.autograd.grad through one elementwise op (the autograd
+    engine's own round trip, no TV kernel). scripts/ab_training.py times
+    the same calls with this function."""
+    import gc
+
+    v = torch.from_numpy(np.random.RandomState(40).rand(1, 128, 128).astype(np.float32)).to(
+        dev).requires_grad_()
+    lam = torch.full((1,), 0.05, device=dev)
+    both = lambda: torch.autograd.grad(kernels.tv_denoise_chw(v, lam, 5).sum(), v)
+    out = {"forward_ms": time_ms(lambda: kernels.tv_denoise_chw(v.detach(), lam, 5), 10, 3,
+                                 graph=False),
+           "forward_backward_ms": time_ms(both, 10, 3, graph=False),
+           "plain_forward_backward_ms": time_ms(
+               lambda: torch.autograd.grad(kernels.tv_denoise_chw_plain(v, lam, 5).sum(), v),
+               10, 3, graph=False),
+           "autograd_elementwise_ms": time_ms(lambda: torch.autograd.grad((v * 2.0).sum(), v),
+                                              10, 3, graph=False)}
+    gc.collect()
+    gc.disable()
+    try:
+        out["forward_backward_ms_gc_paused"] = time_ms(both, 10, 3, graph=False)
+    finally:
+        gc.enable()
+    return out
 
 
 def flagship(dp, dev, size=512):
@@ -1556,10 +1630,11 @@ def phase_check_bsr(kernels, dev):
 
 def phase_kernels_per_call(kernels, dev):
     """Device kernels per call of each wrapper, from a torch.profiler trace
-    of ten calls at a path's shape. bdot's and fused_cg_tail's must match
-    their design: one block a row at path C's [1, 8208] (1), blocks spread
-    over the card and a dependent finish at 1x3x256x256 (2), and the CG
-    tail's three dependent launches (3)."""
+    of ten calls at a path's shape. bdot's, fused_cg_tail's and TV's must
+    match their design: one block a row at path C's [1, 8208] (1), blocks
+    spread over the card and a dependent finish at 1x3x256x256 (2), the CG
+    tail's three dependent launches (3), TV's forward one launch and its
+    backward two (every step, then the sum of d lam) at any count."""
     from collections import Counter
 
     import scipy.sparse as sp
@@ -1613,10 +1688,11 @@ def phase_kernels_per_call(kernels, dev):
         seen += sum(names.values())
         per_call[name] = {"kernels_per_call": sum(names.values()) / 10,
                           "names": {k: c / 10 for k, c in names.items()}}
-    # the autograd backward of a TV forward made under grad, at the tuners'
-    # and the full-width optic's shapes: only the backward kernel's launches
+    # the autograd backward of a TV forward made under grad, at the tuners',
+    # the joint paths' and the full-width optic's shapes: only the backward
+    # kernel's two launches (every step, then the sum of d lam)
     backward_only = {}
-    for shape, it in ((1, 128, 128), 5), ((3, 748, 748), 10):
+    for shape, it in ((1, 128, 128), 5), ((3, 256, 256), 5), ((3, 748, 748), 10):
         yr = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev).requires_grad_()
         g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
         torch.autograd.grad(kernels.tv_denoise_chw(yr, lam, it), yr, g)  # warm
@@ -1636,16 +1712,15 @@ def phase_kernels_per_call(kernels, dev):
     if seen:
         for name, want in (("bdot", 1), ("bdot 1x3x256x256", 2), ("fused_cg_tail", 3),
                            ("tv_denoise_chw", 1), ("tv_denoise_chw 3x512x512x10", 1),
-                           ("tv_denoise_chw_vjp", 5), ("tv_denoise_chw_vjp 3x512x512x10", 10)):
+                           ("tv_denoise_chw_vjp", 2), ("tv_denoise_chw_vjp 3x512x512x10", 2)):
             if per_call[name]["kernels_per_call"] != want:
                 raise AssertionError(f"{name}: {per_call[name]} device kernels a call, not {want}")
         for key, names in backward_only.items():
             other = {k: v for k, v in names.items()
                      if "tv_vjp" not in k and not k.startswith("Memset")}
-            if other or sum(v for k, v in names.items() if "tv_vjp" in k) != int(
-                    key.split("x")[-1]):
+            if other or sum(v for k, v in names.items() if "tv_vjp" in k) != 2:
                 raise AssertionError(f"TV's autograd backward at {key} launched {names}: "
-                                     "only the backward kernel's launches expected")
+                                     "only the backward kernel's two launches expected")
 
 
 def _lp_gates(name, c, A_ub, b_ub, A_eq, b_eq, x, highs_fun, res=None):
@@ -3146,19 +3221,10 @@ def phase_special(dp, kernels, dev, card):
         r24, l24 = rho.expand(24), lam.expand(24)
         admm_obs = _marginal(lambda k: solver.solve(x0=y, rhos=r24[:k], lams=l24[:k], max_iter=k,
                                                     params=p), 8, 24, reps=3, estimates=3)
-    # TV forward and backward kernels at the tuners' shape (1x128x128, the
-    # "tv" prior's 5 iterations), eager, beside autograd through the plain
-    # version (a backward without the kernel)
-    v = torch.rand(1, 128, 128, device=dev, requires_grad=True)
-    lam_tv = torch.full((1,), 0.05, device=dev)
-    timing["tv_forward_ms"] = time_ms(lambda: kernels.tv_denoise_chw(v.detach(), lam_tv, 5),
-                                      10, 3, graph=False)
-    timing["tv_forward_backward_ms"] = time_ms(
-        lambda: torch.autograd.grad(kernels.tv_denoise_chw(v, lam_tv, 5).sum(), v), 10, 3,
-        graph=False)
-    timing["tv_plain_forward_backward_ms"] = time_ms(
-        lambda: torch.autograd.grad(kernels.tv_denoise_chw_plain(v, lam_tv, 5).sum(), v), 10,
-        3, graph=False)
+    # TV forward and backward kernels at the tuners' call, here after this
+    # process's profiler sessions (phase check times the same calls before
+    # any; tv_train_call_ms)
+    timing.update({f"tv_{k}": v for k, v in tv_train_call_ms(kernels, dev).items()})
     timing.update(deq_its_per_sec=statistics.median(deq_obs), deq_obs=deq_obs,
                   admm_its_per_sec=statistics.median(admm_obs), admm_obs=admm_obs,
                   span="8-24", statistic="median of 3 best-of-3")

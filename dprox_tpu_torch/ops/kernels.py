@@ -39,7 +39,8 @@ wrapper but the sparse products runs as a ``torch.autograd.Function``
 whose forward is the kernel (the same one launch). ``tv_denoise_chw``'s
 backward is a kernel too, ``tv_denoise_chw_vjp`` (csrc/tv_denoise.cu): the
 forward writes each dual's clip branch per iteration and the backward runs
-the adjoint recursion from them, one launch a step; its plain version
+every step of the adjoint recursion from them in one windowed launch, then
+adds d lam's partial sums in a second; its plain version
 ``tv_denoise_chw_vjp_plain`` is the same recursion in tensor ops (the JAX
 package differentiates its jnp reference; the Pallas kernel has no VJP).
 The others' backwards are written in PyTorch ops, as the JAX package
@@ -80,8 +81,10 @@ _SIGNATURES = {
         "dprox_tv_denoise_chw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "dprox_tv_max_iterations": [],
         "dprox_tv_window": [_I, _I, _I, _I],
-        "dprox_tv_vjp_workspace": [_I, _I, _I],
-        "dprox_tv_vjp": [_P, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "dprox_tv_vjp_window": [_I, _I, _I, _I],
+        "dprox_tv_vjp_workspace": [_I, _I, _I, _I, _I],
+        "dprox_tv_vjp": [_P, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dprox_tv_kernel_attributes": [_I, _I, _P, _P, _P],
     },
     "freq_divide": {
         "dprox_freq_divide": [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL,
@@ -234,6 +237,9 @@ tv_denoise_chw_plain = tv_denoising_chw
 #: the TV kernel's windows, (warps, rows per thread), in csrc/tv_denoise.cu's
 #: order: a window is 128 columns by warps x rows per thread rows
 TV_WINDOWS = ((8, 4), (8, 12))
+#: the backward kernel's windows, likewise (csrc/tv_denoise.cu's VJP_WINDOWS);
+#: each keeps a halo of iterations - 1 cells
+TV_VJP_WINDOWS = ((16, 2), (16, 4), (16, 6))
 
 
 def tv_max_iterations() -> int:
@@ -247,6 +253,29 @@ def tv_window(planes: int, H: int, W: int, iterations: int) -> int:
     """Index into ``TV_WINDOWS`` of the window the kernel picks for this
     call on the current card."""
     return _lib("tv_denoise").dprox_tv_window(planes, H, W, iterations)
+
+
+def tv_vjp_window(planes: int, H: int, W: int, iterations: int) -> int:
+    """Index into ``TV_VJP_WINDOWS`` of the window the backward kernel
+    picks for this call on the current card."""
+    return _lib("tv_denoise").dprox_tv_vjp_window(planes, H, W, iterations)
+
+
+def tv_kernel_attributes() -> dict:
+    """Registers, local (spill) bytes and static shared bytes of every TV
+    kernel as the card's loader reports them (``cudaFuncGetAttributes``),
+    by kernel: ``forward 128xR``, ``forward_codes 128xR``, ``backward
+    128xR``."""
+    lib, out = _lib("tv_denoise"), {}
+    for kind, name, windows in ((0, "forward", TV_WINDOWS), (1, "forward_codes", TV_WINDOWS),
+                                (2, "backward", TV_VJP_WINDOWS)):
+        for i, (warps, rows) in enumerate(windows):
+            vals = [ctypes.c_int() for _ in range(3)]
+            _check(lib.dprox_tv_kernel_attributes(kind, i, *(ctypes.byref(v) for v in vals)),
+                   "tv_denoise", "tv_kernel_attributes")
+            out[f"{name} 128x{warps * rows}"] = dict(zip(
+                ("registers", "local_bytes", "static_shared_bytes"), (v.value for v in vals)))
+    return out
 
 
 def _requires_grad(*ts) -> bool:
@@ -286,11 +315,12 @@ def _tv_launch(y0, lam, iterations, window: int = -1, codes: bool = False):
     return (out, code) if codes else out
 
 
-def _tv_vjp_launch(codes, lam, iterations, g):
+def _tv_vjp_launch(codes, lam, iterations, g, window: int = -1):
     """The backward kernel: (d y0, d lam in lam's shape) for the cotangent
     ``g`` of a forward whose launch wrote ``codes`` (``_tv_launch(...,
-    codes=True)``). ``g`` is read through its strides (an expanded or
-    strided cotangent costs no copy)."""
+    codes=True)``), in two launches; ``window`` indexes ``TV_VJP_WINDOWS``,
+    -1 lets the kernel pick (``tv_vjp_window``). ``g`` is read through its
+    strides (an expanded or strided cotangent costs no copy)."""
     iterations = int(iterations)
     _cuda_tensor(codes, "codes", torch.uint8, codes.device, ndim=4)
     _cuda_tensor(g, "g", torch.float32, codes.device, ndim=3, contiguous=False)
@@ -299,16 +329,25 @@ def _tv_vjp_launch(codes, lam, iterations, g):
         raise ValueError(f"codes of shape {tuple(codes.shape)} are not those of {iterations} "
                          f"iterations on g's shape {tuple(g.shape)}")
     per_plane = _per_item_scalar(lam, "lam", planes, codes.device)
+    if not -1 <= window < len(TV_VJP_WINDOWS):
+        raise ValueError(f"window must be -1 or an index into TV_VJP_WINDOWS, got {window}")
+    if window >= 0 and TV_VJP_WINDOWS[window][0] * TV_VJP_WINDOWS[window][1] <= 2 * (
+            iterations - 1):
+        raise ValueError(f"window {TV_VJP_WINDOWS[window]} leaves no output row at "
+                         f"{iterations} iterations")
     lib = _lib("tv_denoise")
-    work = torch.empty(lib.dprox_tv_vjp_workspace(planes, H, W), dtype=torch.float32,
-                       device=codes.device)
+    blocks = lib.dprox_tv_vjp_workspace(planes, H, W, iterations, window)
+    if blocks < 0:
+        raise ValueError(f"tv_denoise_chw_vjp kernel takes 1..{tv_max_iterations()} "
+                         f"iterations, got {iterations}")
+    work = torch.empty(blocks, dtype=torch.float32, device=codes.device)
     dy = torch.empty((planes, H, W), dtype=torch.float32, device=codes.device)
     dlam = torch.empty(planes if per_plane else 1, dtype=torch.float32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dprox_tv_vjp(codes.data_ptr() if codes.numel() else None, g.data_ptr(),
                                *g.stride(), per_plane, dy.data_ptr(), dlam.data_ptr(),
-                               work.data_ptr(), planes, H, W, iterations, stream)
+                               work.data_ptr(), planes, H, W, iterations, window, stream)
     _check(err, "tv_denoise", "tv_denoise_chw_vjp")
     tv_denoise_chw_vjp.launches += 1
     return dy, dlam.reshape(lam.shape)
@@ -410,7 +449,7 @@ def tv_denoise_chw_vjp(y0: torch.Tensor, lam, iterations: int, g: torch.Tensor):
     """(d y0, d lam) of ``tv_denoise_chw(y0, lam, iterations)`` for the
     output's cotangent ``g``. On CPU tensors, ``tv_denoise_chw_vjp_plain``;
     on the card the forward kernel with its clip codes, then the backward
-    kernel (``iterations`` launches: one a step and the sum of d lam, in a
+    kernel (two launches: every step in one, then the sum of d lam in a
     fixed order, so two calls give the same bits)."""
     if _on_cpu(y0):
         return tv_denoise_chw_vjp_plain(y0, lam, iterations, g)
@@ -418,7 +457,7 @@ def tv_denoise_chw_vjp(y0: torch.Tensor, lam, iterations: int, g: torch.Tensor):
     return _tv_vjp_launch(codes, lam, iterations, g)
 
 
-tv_denoise_chw_vjp.launches = 0  # backward-kernel calls (each of ``iterations`` launches)
+tv_denoise_chw_vjp.launches = 0  # backward-kernel calls (each of two launches)
 
 
 # --------------------------------------------------------------------------- #

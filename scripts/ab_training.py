@@ -13,7 +13,11 @@ chip_smoke (its kernels build under TREE/build/) and prints JSON lines:
 
 * TV forward and backward at 1x128x128 with 5 iterations (the tuners'
   call, ``torch.autograd.grad`` of the sum), eager, median of 10 x 3
-  calls (chip_smoke.time_ms), and the forward alone;
+  calls, and the forward alone: ``tv_train_call_ms`` of this script's own
+  chip_smoke.py (the function chip_smoke.py times it with), run on the
+  tree's kernels once first in the process and once last, after one
+  torch.profiler session (chip_smoke.py's phase check and phase special
+  time it in those two states);
 * the CS-MRI tuner's training step (chip_smoke's phase special: the
   shipped autotune_csmri policy, ``train`` for one epoch on one 128x128
   sample), host ms ending in a synchronise, each of 5 after a warm-up;
@@ -26,12 +30,15 @@ Every line goes to standard output tagged with its run and tree.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+OWN_CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 
 def measure(tree: str) -> int:
@@ -64,14 +71,10 @@ def measure(tree: str) -> int:
             out.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    v = torch.rand(1, 128, 128, device=dev, requires_grad=True)
-    lam = torch.full((1,), 0.05, device=dev)
-    cs.emit({"what": "tv_forward_backward", "shape": [1, 128, 128], "iterations": 5,
-             "forward_ms": cs.time_ms(lambda: kernels.tv_denoise_chw(v.detach(), lam, 5), 10, 3,
-                                      graph=False),
-             "forward_backward_ms": cs.time_ms(
-                 lambda: torch.autograd.grad(kernels.tv_denoise_chw(v, lam, 5).sum(), v), 10, 3,
-                 graph=False), "card": card})
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_this_script", OWN_CHIP_SMOKE)
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    fresh = own.tv_train_call_ms(kernels, dev)
 
     from dprox_tpu_torch.contrib import csmri
 
@@ -107,6 +110,13 @@ def measure(tree: str) -> int:
     launches = {k: c for k, c in kernels.launch_counts().items() if c}
     cs.emit({"what": "optic_full_train_step", "side": side, "launches": launches,
              "peak_mb": peak_mb, "ms": host_ms(step, 3), "card": card})
+    del fmodel, fsolver, tparams
+    lam = torch.full((1,), 0.05, device=dev)
+    y = torch.rand(1, 128, 128, device=dev)
+    own._kernel_ms(lambda: kernels.tv_denoise_chw(y, lam, 5))  # one profiler session
+    cs.emit({"what": "tv_forward_backward", "shape": [1, 128, 128], "iterations": 5,
+             "fresh": fresh, "after_a_profiler_session": own.tv_train_call_ms(kernels, dev),
+             "card": card})
     return 0
 
 

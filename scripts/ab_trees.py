@@ -16,6 +16,11 @@ prints JSON lines:
   call) and 3x256x256 with 5 (paths B and B'): CUDA-graph replay and eager
   ms beside the bound, and a SHA-1 of each output, which must agree
   between trees whose TV arithmetic is the same;
+* ``tv_denoise_chw_vjp`` at the four training shapes (chip_smoke's
+  TV_VJP_SHAPES): the backward kernel from the forward's clip codes,
+  CUDA-graph replay and eager ms beside its bound, a SHA-1 of d y0 (which
+  must agree between trees whose adjoint arithmetic is the same) and d
+  lam; the forward with the codes and without, CUDA-graph replay;
 * the tree's own chip_smoke.phase_main and phase_marginal (the flagship:
   PSNR, marginal iterations/s, stage_ms with tv_branch);
 * ``bdot`` at every row a path hands it ([1, 8208], [1, 32784], [1, 8208]
@@ -73,6 +78,26 @@ def measure(tree: str) -> int:
                  "ms": cs.time_ms(lambda: kernels.tv_denoise_chw(y, lam, it)),
                  "eager_ms": cs.time_ms(lambda: kernels.tv_denoise_chw(y, lam, it), graph=False),
                  "library_ms": None, "bound_ms": cs.bound(8 * n + 4, n * (16 * (it - 1) + 6))[0],
+                 "card": card})
+    vrng = np.random.RandomState(7)  # its own stream: the records below keep their inputs
+    for shape, it in cs.TV_VJP_SHAPES:
+        y = torch.from_numpy(vrng.rand(*shape).astype(np.float32)).to(dev)
+        g = torch.from_numpy(vrng.randn(*shape).astype(np.float32)).to(dev)
+        _, codes = kernels._tv_launch(y, lam, it, codes=True)
+        dy, dlam = kernels._tv_vjp_launch(codes, lam, it, g)
+        n = y.numel()
+        cs.emit({"kernel": "tv_denoise_chw_vjp", "shape": list(shape), "iterations": it,
+                 "sha1": hashlib.sha1(dy.cpu().numpy().tobytes()).hexdigest(),
+                 "dlam": float(dlam),
+                 "ms": cs.time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g)),
+                 "eager_ms": cs.time_ms(lambda: kernels._tv_vjp_launch(codes, lam, it, g),
+                                        graph=False),
+                 "bound_ms": cs.bound((it - 1) * n + 8 * n + 8, 18 * n * (it - 1))[0],
+                 "forward_with_codes_ms": cs.time_ms(
+                     lambda: kernels._tv_launch(y, lam, it, codes=True)),
+                 "forward_ms": cs.time_ms(lambda: kernels._tv_launch(y, lam, it)),
+                 "forward_with_codes_bound_ms": cs.bound(8 * n + (it - 1) * n + 4,
+                                                         n * (16 * (it - 1) + 6))[0],
                  "card": card})
     solver, b, _ = cs.phase_main(dp, kernels, dev)
     cs.phase_marginal(dp, solver, b, card)

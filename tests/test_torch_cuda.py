@@ -750,63 +750,126 @@ def test_tv_gradient_is_the_backward_kernels_and_equals_the_plain_adjoint(cuda):
 
 def _tv_inputs(shape, per_plane, kind, seed):
     """(y0, lam) on the card: a random image, or for "tie" a
-    piecewise-constant one with lam = 0 (max and min tie where it is flat)."""
+    piecewise-constant one with lam = 0 (max and min tie where it is flat),
+    or for "smooth" a random image with lam = 2 (few duals clip)."""
     rng = np.random.RandomState(seed)
     n = shape[0] if per_plane else 1
     if kind == "tie":
         blocks = rng.randint(0, 3, (shape[0], -(-shape[1] // 8), -(-shape[2] // 8)))
         y = np.kron(blocks, np.ones((1, 8, 8)))[:, :shape[1], :shape[2]]
         lam = np.zeros(n)
+    elif kind == "smooth":
+        y, lam = rng.rand(*shape), np.full(n, 2.0)
     else:
         y, lam = rng.rand(*shape), 0.02 + 0.1 * rng.rand(n)
     put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to("cuda")
     return put(y), put(lam)
 
 
-@pytest.mark.parametrize("shape,iterations,per_plane,kind",
-                         [c + ("rand",) for c in TV_WINDOW_CASES]
-                         + [((3, 64, 200), 10, False, "tie"), ((2, 40, 130), 5, True, "tie"),
-                            ((3, 33, 2), 3, True, "rand"), ((1, 2, 70), 1, False, "rand")])
-def test_tv_backward_kernel_matches_plain_adjoint(cuda, shape, iterations, per_plane, kind):
-    """In every window of the forward the count fits: the forward with its
-    clip codes gives the plain version's bits; the backward gives the plain
-    adjoint's bits for d y0 and, against the adjoint run in float64 on the
-    same branches, d y0 within 1e-6 of its largest entry and d lam within
-    1e-5 of the gradient's largest entry (a float32 sum of 2 (iterations -
-    1) terms a cell in another order); two calls and a CUDA-graph replay
-    give the same bits; lam once or once per plane; the tie case."""
-    y, lam = _tv_inputs(shape, per_plane, kind, seed=21)
-    g = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(np.float32)).to(cuda)
+def _tv_forward_and_backward_in_every_window(y, lam, iterations, g):
+    """The forward with its clip codes in every forward window the count
+    fits and, from each, the backward in every backward window: the
+    forward's and d y0's bits against the plain version and the plain
+    adjoint, the codes alike in every forward window, d y0 within 1e-6 of
+    its largest entry and d lam within 1e-5 of the gradient's largest
+    entry of the adjoint run in float64 on the same branches (a float32 sum
+    of 2 (iterations - 1) terms a cell in another order), a second call's
+    bits, one count a call. Returns the last (codes, d y0, d lam)."""
+    W = y.shape[-1]
     ref = kernels.tv_denoise_chw_plain(y, lam, iterations)
-    rdy, rdlam = kernels.tv_denoise_chw_vjp_plain(y, lam, iterations, g)
+    rdy, _ = kernels.tv_denoise_chw_vjp_plain(y, lam, iterations, g)
     dy64, dlam64 = kernels.tv_denoise_chw_vjp_plain(y, lam, iterations, g.double())
     scale = max(float(dy64.abs().max()), float(dlam64.abs().max()), 1e-30)
     fits = [i for i, (warps, rows) in enumerate(kernels.TV_WINDOWS)
             if warps * rows - 2 * iterations >= 1]
-    assert fits
+    back = [i for i, (warps, rows) in enumerate(kernels.TV_VJP_WINDOWS)
+            if warps * rows - 2 * (iterations - 1) >= 1]
+    assert fits and back
+    assert kernels.tv_vjp_window(*y.shape, iterations) in back
+    first = None
     for i in fits + [-1]:
         out, codes = kernels._tv_launch(y, lam, iterations, i, codes=True)
-        before = kernels.tv_denoise_chw_vjp.launches
-        dy, dlam = kernels._tv_vjp_launch(codes, lam, iterations, g)
-        assert kernels.tv_denoise_chw_vjp.launches == before + 1
         torch.cuda.synchronize()
         assert torch.equal(out, ref), i
-        assert dlam.shape == lam.shape and torch.equal(dy, rdy), i
-        assert float((dy.double() - dy64).abs().max()) <= 1e-6 * float(dy64.abs().max()), i
-        assert float((dlam.double() - dlam64).abs().max()) <= 1e-5 * scale, i
-        again = kernels._tv_vjp_launch(codes, lam, iterations, g)
-        assert torch.equal(again[0], dy) and torch.equal(again[1], dlam)
+        if first is None:
+            first = codes
+        assert torch.equal(codes[..., :W], first[..., :W]), i
+        for j in back + [-1]:
+            before = kernels.tv_denoise_chw_vjp.launches
+            dy, dlam = kernels._tv_vjp_launch(codes, lam, iterations, g, j)
+            assert kernels.tv_denoise_chw_vjp.launches == before + 1
+            torch.cuda.synchronize()
+            assert dlam.shape == lam.shape and torch.equal(dy, rdy), (i, j)
+            assert float((dy.double() - dy64).abs().max()) <= 1e-6 * float(
+                dy64.abs().max()), (i, j)
+            assert float((dlam.double() - dlam64).abs().max()) <= 1e-5 * scale, (i, j)
+            again = kernels._tv_vjp_launch(codes, lam, iterations, g, j)
+            assert torch.equal(again[0], dy) and torch.equal(again[1], dlam), (i, j)
+    return codes, dy, dlam, dlam64
+
+
+@pytest.mark.parametrize("shape,iterations,per_plane,kind",
+                         [c + ("rand",) for c in TV_WINDOW_CASES]
+                         + [((3, 64, 200), 10, False, "tie"), ((2, 40, 130), 5, True, "tie"),
+                            ((3, 33, 2), 3, True, "rand"), ((1, 2, 70), 1, False, "rand"),
+                            ((2, 100, 260), 10, True, "smooth")])
+def test_tv_backward_kernel_matches_plain_adjoint(cuda, shape, iterations, per_plane, kind):
+    """In every forward window the count fits and every backward window:
+    the forward with its clip codes gives the plain version's bits; the
+    backward gives the plain adjoint's bits for d y0 and, against the
+    adjoint run in float64 on the same branches, d y0 within 1e-6 and d lam
+    within 1e-5; two calls and a CUDA-graph replay give the same bits; lam
+    once or once per plane; the tie case; "smooth" (lam 2: few duals clip,
+    so an error at a window's edge reaches its output cells)."""
+    y, lam = _tv_inputs(shape, per_plane, kind, seed=21)
+    g = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(np.float32)).to(cuda)
+    codes, dy, dlam, dlam64 = _tv_forward_and_backward_in_every_window(y, lam, iterations, g)
     replay = _replayed(lambda: kernels._tv_vjp_launch(codes, lam, iterations, g))
     assert torch.equal(replay[0], dy) and torch.equal(replay[1], dlam)
     if kind == "tie" and iterations > 1:
         assert float(dlam64.abs().max()) > 0  # the ties reach d lam
 
 
+# heights and widths on both sides of each backward window's output
+# rectangle (rows 32, 64, 96 less 2 (iterations - 1); columns 128 less a
+# left halo of iterations - 1 rounded up to 4 and a right one of iterations
+# - 1, rounded down to 4), at 1, 2, 10 and the largest iteration count
+TV_VJP_EDGE_CASES = [
+    ((1, 31, 127), 1), ((2, 33, 129), 1), ((1, 63, 128), 1), ((1, 97, 257), 1),
+    ((1, 29, 119), 2), ((2, 31, 121), 2), ((1, 61, 240), 2), ((1, 63, 241), 2),
+    ((1, 93, 120), 2), ((1, 95, 121), 2),
+    ((1, 13, 103), 10), ((2, 15, 105), 10), ((1, 45, 208), 10), ((1, 47, 209), 10),
+    ((3, 77, 104), 10), ((1, 79, 313), 10),
+    ((1, 3, 31), 47), ((1, 5, 33), 47), ((2, 9, 65), 47)]
+
+
+@pytest.mark.parametrize("shape,iterations", TV_VJP_EDGE_CASES)
+def test_tv_backward_every_window_at_its_edges(cuda, shape, iterations):
+    """Sizes on both sides of each backward window's output rectangle, lam
+    per plane: every forward and backward window gives the plain version's
+    and the plain adjoint's bits, a CUDA-graph replay too."""
+    assert kernels.tv_max_iterations() == 47
+    y, lam = _tv_inputs(shape, True, "rand", seed=25)
+    g = torch.from_numpy(np.random.RandomState(26).randn(*shape).astype(np.float32)).to(cuda)
+    codes, dy, dlam, _ = _tv_forward_and_backward_in_every_window(y, lam, iterations, g)
+    replay = _replayed(lambda: kernels._tv_vjp_launch(codes, lam, iterations, g))
+    assert torch.equal(replay[0], dy) and torch.equal(replay[1], dlam)
+
+
+def test_tv_kernel_attributes_are_read_on_the_card(cuda):
+    """Every TV kernel's registers (at most the card's 255), spill bytes
+    and static shared bytes, as cudaFuncGetAttributes reports them."""
+    attrs = kernels.tv_kernel_attributes()
+    assert len(attrs) == 2 * len(kernels.TV_WINDOWS) + len(kernels.TV_VJP_WINDOWS)
+    for name, a in attrs.items():
+        assert 0 < a["registers"] <= 255 and a["local_bytes"] >= 0, (name, a)
+
+
 def test_tv_backward_launches_only_the_ports_kernels(cuda):
     """A profiler trace of one backward at the joint paths' shape
-    (3x256x256, 5 iterations) holds the backward kernel's launches (4 steps
-    and the sum of d lam) and nothing else: no aten elementwise or cat
-    kernel; the Python limit equals the library's."""
+    (3x256x256, 5 iterations) holds the backward kernel's two launches
+    (every step, then the sum of d lam) and nothing else: no aten
+    elementwise or cat kernel; the Python limit equals the library's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -822,7 +885,7 @@ def test_tv_backward_launches_only_the_ports_kernels(cuda):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
              and not e.name.startswith("Memset")]
-    assert len(names) == 5 and all("tv_vjp" in n for n in names), names
+    assert len(names) == 2 and all("tv_vjp" in n for n in names), names
 
 
 def test_tv_backward_wrapper_refusals(cuda):
