@@ -14,6 +14,11 @@ plain autograd differentiates (the LP path's hyperparameter pretraining).
 ``bdot`` is the batched-dot kernel (ops/kernels.py::bdot) for CUDA
 float32 or float64 operands, differentiable in both, and plain torch for
 CPU tensors.
+
+Each solver adds one to the program counter ``linalg.solves`` and its
+iteration count to ``linalg.iterations`` as it returns
+(utils/profiling.py::counts); a ``cg``/``pcg`` solve of k iterations reads
+its stop test from the host k + 1 times.
 """
 from __future__ import annotations
 
@@ -23,8 +28,14 @@ import torch
 
 from ..ops import kernels
 from ..ops.kernels import fused_cg_tail
+from ..utils.profiling import count
 
 Array = torch.Tensor
+
+
+def _tally(iterations: int) -> None:
+    count("linalg.solves")
+    count("linalg.iterations", iterations)
 
 
 def bdot(x: Array, y: Array) -> Array:
@@ -64,6 +75,7 @@ def cg(A: Callable, b: Array, x0: Optional[Array] = None, rtol: float = 1e-6,
         p = r + _bexpand(beta, p) * p
         rs = rs_new
         k += 1
+    _tally(k)
     return x
 
 
@@ -91,6 +103,7 @@ def cg_unrolled(A: Callable, b: Array, x0: Optional[Array] = None,
         beta = torch.where(active, rs_new, zero) / torch.where(active, rs, one)
         p = r + _bexpand(beta, p) * p
         rs = rs_new
+    _tally(max_iters)
     return x
 
 
@@ -112,6 +125,7 @@ def cg2(A: Callable, b: Array, x0: Optional[Array] = None, rtol: float = 1e-6,
         p = r + (rs_new / _clamp(rs)) * p
         rs = rs_new
         k += 1
+    _tally(k)
     return x
 
 
@@ -143,6 +157,7 @@ def pcg(A: Callable, b: Array, Minv: Optional[Callable] = None,
         p = z + _bexpand(beta, p) * p
         rz = rz_new
         k += 1
+    _tally(k)
     return x
 
 
@@ -207,6 +222,7 @@ def plssw(A: Callable, b: Array, Wh: Optional[Array] = None,
         p = _bexpand(beta1, p) * p + _bexpand(beta2, z) * Wi(z)
         x = x + p
         k += 1
+    _tally(k)
     return torch.where(_bexpand(nc_min < nc, x), x_min, x)
 
 
@@ -253,6 +269,7 @@ def minres(A: Callable, b: Array, x0: Optional[Array] = None, rtol: float = 1e-6
         c_old, c, s_old, s = c, c_next, s, s_next
         resid = eta.abs()
         k += 1
+    _tally(k)
     return x
 
 
@@ -273,6 +290,7 @@ def cg_pallas(A: Callable, b: Array, x0: Optional[Array] = None,
     while k < max_iters and bool((torch.sqrt(rs) > tol).any()):
         x, r, p, rs = fused_cg_tail(x, r, p, A(p).contiguous(), rs)
         k += 1
+    _tally(k)
     return x
 
 

@@ -18,6 +18,7 @@ import torch
 
 from ..linop.base import LinOp, Params, Placeholder
 from ..utils.misc import expand_to_bchw, to_tensor
+from ..utils.profiling import span
 
 Array = torch.Tensor
 
@@ -65,26 +66,28 @@ class ProxFn:
     def prox(self, v: Array, lam, params: Optional[Params] = None, step=None,
              offset: Optional[Array] = None) -> Array:
         """Full prox with modifiers; ``offset`` may come precomputed
-        (solvers hoist it out of the iteration loop)."""
-        lam = torch.as_tensor(lam, device=v.device)
-        lam = expand_to_bchw(lam.real if lam.is_complex() else lam)  # real under complex states
-        if offset is None and self.linop.constants:
-            var = self.linop.variables[0]
-            offset = self.offset({var.name: v.shape}, params)
+        (solvers hoist it out of the iteration loop). Traced as the span
+        ``dprox.prox`` (utils/profiling.py)."""
+        with span("dprox.prox"):
+            lam = torch.as_tensor(lam, device=v.device)
+            lam = expand_to_bchw(lam.real if lam.is_complex() else lam)  # real under complex states
+            if offset is None and self.linop.constants:
+                var = self.linop.variables[0]
+                offset = self.offset({var.name: v.shape}, params)
 
-        def scaled(v_, lam_):  # alpha * f
-            if self.alpha != 1.0:
-                lam_ = lam_ * self.alpha
-            return self._prox(v_, lam_, params=params, step=step)
+            def scaled(v_, lam_):  # alpha * f
+                if self.alpha != 1.0:
+                    lam_ = lam_ * self.alpha
+                return self._prox(v_, lam_, params=params, step=step)
 
-        def affine(v_, lam_):  # f(beta x)
-            if self.beta == 1.0:
-                return scaled(v_, lam_)
-            return (1.0 / self.beta) * scaled(self.beta * v_, self.beta * self.beta * lam_)
+            def affine(v_, lam_):  # f(beta x)
+                if self.beta == 1.0:
+                    return scaled(v_, lam_)
+                return (1.0 / self.beta) * scaled(self.beta * v_, self.beta * self.beta * lam_)
 
-        if offset is None:  # translated: f(y - b)
-            return affine(v, lam)
-        return affine(v - offset, lam) + offset
+            if offset is None:  # translated: f(y - b)
+                return affine(v, lam)
+            return affine(v - offset, lam) + offset
 
     # ------------------------------------------------------------------ #
     # Algebra: scalar * fn sets alpha; fn + fn builds objective lists

@@ -31,6 +31,7 @@ from ..linalg import LinearSolveConfig, linear_solve
 from ..linop.base import LinOp, Params, Placeholder, Variable, vstack
 from ..ops.kernels import freq_divide
 from ..utils.misc import expand_to_bchw, to_tensor
+from ..utils.profiling import span
 from .base import Array, HeldData, ProxFn
 
 
@@ -181,12 +182,13 @@ class ext_sum_squares(HeldData, sum_squares):
               var_shapes=None, prepared=None, warm=None) -> Array:
         """The fused x-update of ``sum(vs)``; ``var_shapes``, ``prepared``
         and ``warm`` are taken for the solvers' interface and unused (the
-        solve is closed-form)."""
-        xtilde = 0.0
-        for v in vs:
-            xtilde = xtilde + v
-        rho = torch.as_tensor(rho, dtype=torch.float32, device=vs[0].device)
-        return self._solve(xtilde, expand_to_bchw(rho), len(vs), params)
+        solve is closed-form). Traced as the span ``dprox.xupdate``."""
+        with span("dprox.xupdate"):
+            xtilde = 0.0
+            for v in vs:
+                xtilde = xtilde + v
+            rho = torch.as_tensor(rho, dtype=torch.float32, device=vs[0].device)
+            return self._solve(xtilde, expand_to_bchw(rho), len(vs), params)
 
     def _solve(self, xtilde, rho, n, params):
         raise NotImplementedError
@@ -223,15 +225,16 @@ class weighted_sum_squares(sum_squares):
         return linop_adjoint(self.weight, self.unwrap_b(params), params)
 
     def prox(self, v, lam, params=None, step=None, offset=None):
-        lam = expand_to_bchw(torch.as_tensor(lam, dtype=v.dtype, device=v.device))
-        if not self.freq:
-            diag = self.weight.gram_diag(v.shape, params, freq=False)
-            return (self.Ktb(params) + lam * v) / (diag + lam)
-        diag = self.weight.gram_diag(v.shape, params, freq=True)
-        H = self.weight.diag(v.shape, params, freq=True)
-        num = torch.conj(H) * _fftn2(self.unwrap_b(params)) + lam * _fftn2(v)
-        return _ifftn2(freq_divide(num.to(torch.complex64), diag.to(torch.float32),
-                                   lam.to(torch.float32), self.eps)).real.to(v.dtype)
+        with span("dprox.prox"):
+            lam = expand_to_bchw(torch.as_tensor(lam, dtype=v.dtype, device=v.device))
+            if not self.freq:
+                diag = self.weight.gram_diag(v.shape, params, freq=False)
+                return (self.Ktb(params) + lam * v) / (diag + lam)
+            diag = self.weight.gram_diag(v.shape, params, freq=True)
+            H = self.weight.diag(v.shape, params, freq=True)
+            num = torch.conj(H) * _fftn2(self.unwrap_b(params)) + lam * _fftn2(v)
+            return _ifftn2(freq_divide(num.to(torch.complex64), diag.to(torch.float32),
+                                       lam.to(torch.float32), self.eps)).real.to(v.dtype)
 
 
 class least_squares(ProxFn):
@@ -453,14 +456,16 @@ class least_squares(ProxFn):
         """``warm``: previous iterate to warm-start the CG path (the direct
         path ignores it; no gradient flows through the warm start). Without
         psi terms (``b == []``) and ``v`` the x-update is the quadratic
-        terms' own minimizer, and ``warm`` fixes the device."""
+        terms' own minimizer, and ``warm`` fixes the device. Traced as the
+        span ``dprox.xupdate`` (utils/profiling.py), either route."""
         ref = v if v is not None else (b[0] if b else warm)
         if ref is None:
             raise ValueError("need b, v or warm for shape inference")
-        rho = expand_to_bchw(torch.as_tensor(rho, dtype=torch.float32, device=ref.device))
-        if self.diagonalizable or self.freq_diagonalizable:
-            return self.solve_direct(b, rho, v, params, eps, var_shapes, prepared)
-        return self.solve_cg(b, rho, v, params, var_shapes, prepared, warm)
+        with span("dprox.xupdate"):
+            rho = expand_to_bchw(torch.as_tensor(rho, dtype=torch.float32, device=ref.device))
+            if self.diagonalizable or self.freq_diagonalizable:
+                return self.solve_direct(b, rho, v, params, eps, var_shapes, prepared)
+            return self.solve_cg(b, rho, v, params, var_shapes, prepared, warm)
 
     def solve_direct(self, b, rho, v=None, params=None, eps: float = 1e-7,
                      var_shapes=None, prepared=None) -> Array:
