@@ -157,7 +157,12 @@ Between 2 and 3, phase kernels_per_call counts each wrapper's device
 kernels per call in a torch.profiler trace of ten calls, and holds TV's
 autograd backward to its backward kernel's launches alone; phase
 check_complex holds freq_divide's complex-divisor entry against its plain
-version and the TV kernel on a complex tensor's real part.
+version and the TV kernel on a complex tensor's real part; phase check_mcg
+holds the structured CG's stage kernels (csrc/mosaic_pcg.cu) against their
+plain versions, times them at the jdd_ffdnet cell's 1x3x2048x2048 with
+cuFFT's calls, and runs one x-update by linalg.pcg and by the structured
+solve at 3x256^2 and 3x2048^2 (equal iterations, K(x) within
+MCG_DATA_TOL).
 
 Then the host seconds each phase took, one line {"kernels": [...]}, the
 nvidia-smi name/power-limit line,
@@ -386,6 +391,12 @@ TV_VJP_SHAPES = [((1, 128, 128), 5), ((3, 256, 256), 5), ((3, 512, 512), 10),
                  ((3, 748, 748), 10)]
 DIVIDE_REL_TOL = 1e-6  # max |kernel - plain| / max |plain|
 REDUCE_REL_TOL = 1e-5  # bdot and the CG tail: float32 sums in another order
+# the structured CG's stages against their plain versions (torch's complex
+# products may contract into FMAs; the kernels' do not), and one x-update by
+# it against linalg.pcg: max |K x - K x_pcg|, a tenth of the jdd_ffdnet
+# cell's data_max_err limit (1e-3)
+MCG_REL_TOL = 1e-6
+MCG_DATA_TOL = 1e-4
 REDUCE_REL_TOL_F64 = 1e-12  # bdot in float64
 # gradients of an unrolled solve on the card against the CPU: cuFFT rounds
 # differently from the CPU's FFT, and a pixel within that rounding of a
@@ -1059,6 +1070,211 @@ def phase_check_solver_kernels(kernels, dev):
     return [admm, dot, tail]
 
 
+def mcg_system(dp, size, dev, batch=1, seed=0):
+    """The x-update system of the jdd_ffdnet cell at batch x 3 x size^2:
+    K = mosaic(conv(x, psf(15, 3))), rho from log_descent(80, 30, 5), a
+    seeded uniform observation and consensus block, the frequency-Jacobi
+    diagonal; ``A(rho)``, ``Minv(rho)`` as least_squares.solve_cg builds
+    them (one rho term), ``Ktb(rho)``, ``mdiag(rho)``, ``K`` (for
+    data_max_err), ``otf`` (contiguous) and ``x0``."""
+    import importlib
+    import types
+
+    from dprox_tpu_torch.utils.imaging import point_spread_function
+
+    ss = importlib.import_module("dprox_tpu_torch.proxfn.sum_squares")
+    x = dp.Variable()
+    fn = dp.sum_squares(dp.mosaic(dp.conv(x, point_spread_function(15, 3))) - dp.Placeholder("b"))
+    fn.to(dev)
+    shape = (batch, 3, size, size)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    obs, v, x0 = (torch.rand(shape, generator=g, device=dev) for _ in range(3))
+    params = {"b": obs}
+    quad = fn.dag_adjoint(obs, params)
+    surrogate = fn.linop.gram_freq_surrogate(shape, params)
+    rhos, _ = dp.log_descent(80, 30, 5)
+    as_rho = lambda r: torch.as_tensor(r, dtype=torch.float32, device=dev).reshape(-1, 1, 1, 1)
+    return types.SimpleNamespace(
+        shape=shape, params=params, x0=x0, rhos=[float(r) for r in rhos],
+        otf=ss._linear_part(fn.linop).children[0]._otf(shape).contiguous(),
+        rtol=max(1e-6, 30 * float(torch.finfo(torch.float32).eps)),
+        rho=as_rho, Ktb=lambda r: quad + as_rho(r) * v,
+        mdiag=lambda r: (surrogate + as_rho(r) * 1.0).contiguous(),
+        A=lambda r: (lambda p: (0.0 + fn.dag_adjoint(fn.dag_forward(p, params), params))
+                     + as_rho(r) * p),
+        Minv=lambda r: (lambda t: ss._freq_jacobi_minv((None, None, surrogate + as_rho(r) * 1.0),
+                                                       t)),
+        K=lambda t: fn.dag_forward(t, params))
+
+
+def mcg_solves(dp, kernels, system, rho):
+    """One x-update by linalg.pcg and by the structured solve, the same
+    system, warm start and stop rule: each one's iterations and ms (timed
+    once by CUDA events after a warm solve), max |K x_structured - K
+    x_pcg| and whether the two x are the same bits."""
+    from dprox_tpu_torch.linalg import pcg
+    from dprox_tpu_torch.linalg.structured import mosaic_conv_pcg
+    from dprox_tpu_torch.utils import profiling
+
+    b, A, Minv = system.Ktb(rho), system.A(rho), system.Minv(rho)
+    md, r = system.mdiag(rho), system.rho(rho)
+    runs = {"pcg": lambda: pcg(A, b, Minv, system.x0, system.rtol, 50),
+            "structured": lambda: mosaic_conv_pcg(system.otf, 1, r, md, b, system.x0,
+                                                  system.rtol, 50)}
+    out = {}
+    for name, run in runs.items():
+        run()
+        profiling.reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = run()
+        end.record()
+        end.synchronize()
+        out[name] = (x, profiling.counts()["linalg.iterations"], start.elapsed_time(end))
+    (xp, it_p, ms_p), (xs, it_s, ms_s) = out["pcg"], out["structured"]
+    return {"iterations_pcg": it_p, "iterations_structured": it_s,
+            "data_max_err": float((system.K(xs) - system.K(xp)).abs().max()),
+            "x_equal": bool(torch.equal(xs, xp)), "ms_pcg": ms_p, "ms_structured": ms_s,
+            "ms_per_iteration_pcg": ms_p / max(it_p, 1),
+            "ms_per_iteration_structured": ms_s / max(it_s, 1)}
+
+
+#: bytes each stage moves an element of a [B, 3, H, W] field: 4 a float32
+#: value, 8 a complex64 one, each operand read once and each output written
+#: once (the OTF and mdiag are one plane set, read once for B = 1)
+MCG_BYTES_PER_ELEMENT = {"mcg_otf_apply": 24, "mcg_mask": 16, "mcg_gram": 16, "mcg_step": 32,
+                         "mcg_precond": 20, "mcg_real": 12, "mcg_direction": 20,
+                         "mcg_start": 16, "mcg_residual": 28}
+
+
+def phase_check_mcg(dp, kernels, dev):
+    """The structured CG's stage kernels (csrc/mosaic_pcg.cu) against their
+    plain versions on the card, their times at the jdd_ffdnet cell's
+    1x3x2048x2048 beside their plain versions and their bounds, cuFFT's
+    calls with and without ``out=`` and the inverse's scaling, and one
+    x-update by linalg.pcg and by the structured solve at 3x256^2 and
+    3x2048^2 (equal iterations, K(x) within MCG_DATA_TOL)."""
+    rng = np.random.RandomState(2)
+
+    def operands(shape):
+        B = shape[0]
+        c = lambda: (_randn(rng, shape, dev) + 1j * _randn(rng, shape, dev)).to(torch.complex64)
+        f = lambda: _randn(rng, shape, dev)
+        pos = lambda n: torch.from_numpy((0.5 + rng.rand(n)).astype(np.float32)).to(dev)
+        return dict(F=c(), otf=c()[:1].contiguous(), x=f(), r=f(), p=f(), Ap=f(), b=f(),
+                    z=f(), mdiag=(0.1 + f().abs())[:1].contiguous(),
+                    rho=pos(B).reshape(-1, 1, 1, 1), rz=pos(B), pAp=pos(B), rz_new=pos(B),
+                    scale=1.0 / (shape[2] * shape[3]))
+
+    def stages(o, timing=False):
+        """name -> (kernel call, plain call). To check: fresh copies of what
+        a kernel writes in place and fresh outputs; to time: the operands
+        themselves (an in-place stage runs on its last output) and outputs
+        made once, so that a call is the kernel alone."""
+        B = o["x"].shape[0]
+        if timing:
+            made = [torch.empty_like(o["x"]), torch.empty_like(o["F"]),
+                    torch.zeros(B, device=dev)]
+            cl, buf, cbuf, s = (lambda t: t), (lambda: made[0]), (lambda: made[1]), \
+                (lambda: made[2])
+        else:
+            cl = lambda t: t.clone()
+            buf = lambda: torch.empty_like(o["x"])
+            cbuf = lambda: torch.empty_like(o["F"])
+            s = lambda: torch.zeros(B, device=dev)
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        rmax, bmax = (_randn(rng, (B,), dev).abs() for _ in range(2))
+        return {
+            "mcg_otf_apply": (lambda: kernels.mcg_otf_apply(cl(o["F"]), o["otf"], False),
+                              lambda: kernels.mcg_otf_apply_plain(o["F"], o["otf"], False)),
+            "mcg_otf_apply_adjoint": (lambda: kernels.mcg_otf_apply(cl(o["F"]), o["otf"], True),
+                                      lambda: kernels.mcg_otf_apply_plain(o["F"], o["otf"], True)),
+            "mcg_mask": (lambda: kernels.mcg_mask(cl(o["F"]), o["scale"]),
+                         lambda: kernels.mcg_mask_plain(o["F"], o["scale"])),
+            "mcg_gram": (lambda: kernels.mcg_gram(o["F"], o["p"], o["rho"], 2, o["scale"], buf(),
+                                                  s()),
+                         lambda: kernels.mcg_gram_plain(o["F"], o["p"], o["rho"], 2, o["scale"])),
+            "mcg_step": (lambda: kernels.mcg_step(cl(o["x"]), cl(o["r"]), o["p"], o["Ap"], o["rz"],
+                                                  o["pAp"], cbuf(), s()),
+                         lambda: kernels.mcg_step_plain(o["x"], o["r"], o["p"], o["Ap"], o["rz"],
+                                                        o["pAp"])),
+            "mcg_precond": (lambda: kernels.mcg_precond(cl(o["F"]), o["mdiag"]),
+                            lambda: kernels.mcg_precond_plain(o["F"], o["mdiag"])),
+            "mcg_real": (lambda: kernels.mcg_real(o["F"], o["scale"], buf()),
+                         lambda: kernels.mcg_real_plain(o["F"], o["scale"])),
+            "mcg_direction": (lambda: kernels.mcg_direction(o["z"], cl(o["p"]), o["rz_new"],
+                                                            o["rz"], cbuf(), rmax, bmax, 1e-3,
+                                                            flag)[:2],
+                              lambda: kernels.mcg_direction_plain(o["z"], o["p"], o["rz_new"],
+                                                                  o["rz"], rmax, bmax, 1e-3,
+                                                                  False)[:2]),
+            "mcg_start": (lambda: kernels.mcg_start(o["x"], o["b"], buf(), cbuf(), s(), s()),
+                          lambda: kernels.mcg_start_plain(o["x"], o["b"])),
+            "mcg_residual": (lambda: kernels.mcg_residual(o["F"], o["b"], o["x"], o["rho"], 1,
+                                                          o["scale"], buf(), cbuf(), s(),
+                                                          s()),
+                             lambda: kernels.mcg_residual_plain(o["F"], o["b"], o["x"], o["rho"],
+                                                                1, o["scale"]))}
+
+    def as_tuple(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    cases = []
+    for shape in [(1, 3, 256, 256), (2, 3, 17, 19), (2, 3, 64, 66)]:
+        for name, (run, plain) in stages(operands(shape)).items():
+            got, ref = as_tuple(run()), as_tuple(plain())
+            torch.cuda.synchronize()
+            errs = [float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                    for g, r in zip(got, ref)]
+            cases.append({"shape": list(shape), "kernel": name, "max_rel_err": max(errs),
+                          "bits_equal": all(torch.equal(g, r) for g, r in zip(got, ref))})
+            if not max(errs) <= MCG_REL_TOL:
+                raise AssertionError(f"{name} {shape}: relative error {max(errs)} > "
+                                     f"{MCG_REL_TOL}")
+
+    shape = (1, 3, 2048, 2048)
+    o = operands(shape)
+    n = o["x"].numel()
+    measured = []
+    for name, (run, plain) in stages(o, timing=True).items():
+        if name == "mcg_otf_apply_adjoint":
+            continue
+        nbytes = MCG_BYTES_PER_ELEMENT[name] * n
+        b = bound(nbytes, 0)
+        measured.append({"name": name, "route": "cuda",
+                         "source": "dprox_tpu_torch/csrc/mosaic_pcg.cu",
+                         "replaces": "none: fuses dprox_tpu/proxfn/sum_squares.py's CG "
+                                     "x-update stages", "shape": list(shape),
+                         "max_rel_err": max(c["max_rel_err"] for c in cases
+                                            if c["kernel"] == name),
+                         "ms": time_ms(run), "plain_ms": time_ms(plain), "bound_ms": b[0],
+                         "bound_by": b[1], "mb": nbytes / 1e6, "library_ms": None})
+    F = o["F"]
+    out = torch.empty_like(F)
+    ffts = {"fftn_ms": time_ms(lambda: torch.fft.fftn(F, dim=(-2, -1))),
+            "fftn_out_ms": time_ms(lambda: torch.fft.fftn(F, dim=(-2, -1), out=out)),
+            "ifftn_scaled_ms": time_ms(lambda: torch.fft.ifftn(F, dim=(-2, -1))),
+            "ifftn_unscaled_ms": time_ms(lambda: torch.fft.ifftn(F, dim=(-2, -1),
+                                                                 norm="forward")),
+            "pair_bound_ms": bound(4 * 8 * n, 0)[0]}
+    del o, F, out
+    solves = []
+    for size in (256, 2048):
+        system = mcg_system(dp, size, dev)
+        for rho in (system.rhos[0], system.rhos[-1]):
+            got = mcg_solves(dp, kernels, system, rho)
+            solves.append({"size": size, "rho": rho, **got})
+            if (got["iterations_pcg"] != got["iterations_structured"]
+                    or not got["data_max_err"] <= MCG_DATA_TOL):
+                raise AssertionError(f"structured CG at {size}^2, rho {rho}: {got}")
+        del system
+    emit({"phase": "check_mcg", "cases": cases, "tolerance": MCG_REL_TOL,
+          "timing": "CUDA-graph replay at 1x3x2048x2048, median of 30 x 10 calls",
+          "measured": measured, "ffts_1x3x2048x2048": ffts, "solves": solves,
+          "data_tolerance": MCG_DATA_TOL})
+    return measured
+
+
 def observation(size, psf, mosaic, dev):
     """(img, b) as 1x3xHxW tensors on ``dev``: the synthetic face cropped to
     ``size``, blurred with ``psf`` in float64 on the host and rounded to
@@ -1199,15 +1415,21 @@ def phase_joint(dp, kernels, dev, card):
         launches = kernels.launch_counts()
         # inner CG iterations of the 24 x-updates, from the counts: cg_pallas
         # launches one tail per inner iteration (and bdot twice per set-up),
-        # pcg launches bdot once per set-up and twice per inner iteration
+        # pcg (here the structured CG of linalg/structured.py) launches bdot
+        # once per set-up and twice per inner iteration
         if name == "cg_pallas":
             inner, odd = launches["fused_cg_tail"], 0
             expected = dict.fromkeys(launches, 0) | {
                 "fused_cg_tail": inner, "bdot": 2 * JOINT_ITERS, "tv_denoise_chw": JOINT_ITERS}
-        else:
+        else:  # the structured CG: a matvec a set-up and an iteration
             inner, odd = divmod(launches["bdot"] - JOINT_ITERS, 2)
+            per_solve = inner + JOINT_ITERS
             expected = dict.fromkeys(launches, 0) | {
-                "bdot": launches["bdot"], "tv_denoise_chw": JOINT_ITERS}
+                "bdot": launches["bdot"], "tv_denoise_chw": JOINT_ITERS,
+                "mcg_start": JOINT_ITERS, "mcg_residual": JOINT_ITERS,
+                "mcg_otf_apply": 2 * per_solve, "mcg_mask": per_solve, "mcg_gram": inner,
+                "mcg_step": inner, "mcg_precond": per_solve, "mcg_real": per_solve,
+                "mcg_direction": per_solve}
         p_x = psnr(out, img)
         obs = _marginal(solve, 4, JOINT_ITERS, reps=3, estimates=3)
         results[name] = {"inner_iterations": inner, "launches": launches, "solve_s": seconds,
@@ -4030,7 +4252,8 @@ def main() -> int:
     phase_build(kernels)
     lap("build")
     measured = (phase_check(kernels, dev) + phase_check_solver_kernels(kernels, dev)
-                + phase_check_bsr(kernels, dev) + phase_check_complex(kernels, dev))
+                + phase_check_bsr(kernels, dev) + phase_check_complex(kernels, dev)
+                + phase_check_mcg(dp, kernels, dev))
     phase_kernels_per_call(kernels, dev)
     lap("check")
     solver, b, launches = phase_main(dp, kernels, dev)
@@ -4066,10 +4289,11 @@ def main() -> int:
            "freq_divide": "flagship",
            "fused_admm_update": "nonneg", "bdot": "joint_cg_pallas",
            "fused_cg_tail": "joint_cg_pallas", "bsr_matvec": None, "csr_matvec": "lp",
-           "freq_divide_complex": None}
+           "freq_divide_complex": None,
+           **{fn.__name__: "joint_default_pcg" for fn in kernels.MCG_KERNELS}}
     for k in measured:
         path = own[k["name"]]
-        k["launches_by_path"] = {p: counts[k["name"]] for p, counts in by_path.items()}
+        k["launches_by_path"] = {p: counts.get(k["name"], 0) for p, counts in by_path.items()}
         k["launches"] = k["launches_by_path"][path] if path else 0
         k["launches_counted_on"] = path
         if path and k["launches"] <= 0:

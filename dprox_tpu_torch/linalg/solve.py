@@ -36,7 +36,10 @@ class LinearSolveConfig:
     symmetric: bool = True  # KtK systems are SPD; skips building a transpose
 
 
-def _run_solver(config: LinearSolveConfig, A: Callable, b: Array, x0=None, Minv=None) -> Array:
+def _run_solver(config: LinearSolveConfig, A: Callable, b: Array, x0=None, Minv=None,
+                structured=None, theta=None) -> Array:
+    if structured is not None:
+        return structured(theta, b, x0=x0, rtol=config.rtol, max_iters=config.max_iters)
     kwargs = dict(config.solver_kwargs)
     if x0 is not None:
         kwargs["x0"] = x0
@@ -78,12 +81,13 @@ def _flatten(tree):
 
 class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, config, A_fn, Minv_fn, rebuild, b, x0, *leaves):
+    def forward(ctx, config, A_fn, Minv_fn, structured, rebuild, b, x0, *leaves):
         theta = rebuild(leaves)
         Minv = None if Minv_fn is None else (lambda r: Minv_fn(theta, r))
-        x = _run_solver(config, lambda v: A_fn(theta, v), b, x0, Minv)
+        x = _run_solver(config, lambda v: A_fn(theta, v), b, x0, Minv, structured, theta)
         ctx.save_for_backward(x, *leaves)
         ctx.config, ctx.A_fn, ctx.Minv_fn, ctx.rebuild = config, A_fn, Minv_fn, rebuild
+        ctx.structured = structured
         return x
 
     @staticmethod
@@ -101,11 +105,12 @@ class _ImplicitSolve(torch.autograd.Function):
                 return out
         # the same SPD preconditioner accelerates the transpose solve
         Minv = None if Minv_fn is None else (lambda r: Minv_fn(theta, r))
-        gb = _run_solver(config, AT, g.contiguous(), Minv=Minv)
+        gb = _run_solver(config, AT, g.contiguous(), Minv=Minv,
+                         structured=ctx.structured if config.symmetric else None, theta=theta)
         # dtheta: VJP of theta -> -A(theta, x*) applied to gb
         gleaves = [None] * len(leaves)
         wanted = [i for i in range(len(leaves))
-                  if ctx.needs_input_grad[6 + i] and leaves[i].is_floating_point()]
+                  if ctx.needs_input_grad[7 + i] and leaves[i].is_floating_point()]
         if wanted:
             with torch.enable_grad():
                 live = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(leaves)]
@@ -115,13 +120,14 @@ class _ImplicitSolve(torch.autograd.Function):
             for i, gt in zip(wanted, grads):
                 gleaves[i] = None if gt is None else -gt
         # the converged solution does not depend on the warm start: no grad for x0
-        return (None, None, None, None, gb, None, *gleaves)
+        return (None, None, None, None, None, gb, None, *gleaves)
 
 
 def linear_solve(A_fn: Callable, b: Array, theta=None,
                  config: Optional[LinearSolveConfig] = None,
                  x0: Optional[Array] = None,
-                 Minv_fn: Optional[Callable] = None) -> Array:
+                 Minv_fn: Optional[Callable] = None,
+                 structured: Optional[Callable] = None) -> Array:
     """Solve A(theta) x = b, differentiable w.r.t. ``b`` and the tensors
     in ``theta``.
 
@@ -135,6 +141,13 @@ def linear_solve(A_fn: Callable, b: Array, theta=None,
     config's ``rtol`` and ``max_iters``, unpreconditioned (``Minv_fn`` is
     not used), and autograd differentiates through every iteration, as
     the JAX package does.
+
+    ``structured(theta, b, x0=, rtol=, max_iters=)``, where given, is a
+    solve of the same system by the configured solver that knows A's
+    structure (``linalg.structured.mosaic_conv_pcg``): the implicit path
+    runs it in place of ``config.solver_type``, forward and, for a
+    symmetric A, in the backward's transposed solve. The VJP with respect
+    to ``theta`` still differentiates ``A_fn``.
     """
     config = config or LinearSolveConfig()
     theta = () if theta is None else theta
@@ -142,7 +155,7 @@ def linear_solve(A_fn: Callable, b: Array, theta=None,
         return cg_unrolled(lambda v: A_fn(theta, v), b, x0=x0, rtol=config.rtol,
                            max_iters=config.max_iters)
     leaves, rebuild = _flatten(theta)
-    return _ImplicitSolve.apply(config, A_fn, Minv_fn, rebuild, b, x0, *leaves)
+    return _ImplicitSolve.apply(config, A_fn, Minv_fn, structured, rebuild, b, x0, *leaves)
 
 
 def pcg_solve(A_fn: Callable, b: Array, theta=None, Minv=None, x0=None,

@@ -23,6 +23,10 @@ Each kernel replaces one Pallas TPU kernel of dprox_tpu/ops/pallas_kernels.py:
   (``algo.lp.utils.BSRMat.route``). The compressed kernel cuts its work by
   non-zeros, once, when the operator is built (``csr_split``).
 
+One source replaces no TPU kernel: ``csrc/mosaic_pcg.cu``, the stages of
+the preconditioned CG x-update on ``mosaic(conv(x))`` between its cuFFT
+calls (``mcg_*``, linalg/structured.py), one pass a stage.
+
 The sources in ``csrc/`` are CUDA C++ for ``sm_90a`` with a plain C
 interface (``reduce.cuh`` is the header ``bdot.cu``, ``cg_tail.cu`` and
 ``csr_matvec.cu`` share). ``build()`` compiles each into its own shared
@@ -71,7 +75,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"tv_denoise": "tv_denoise.cu", "freq_divide": "freq_divide.cu",
            "fused_admm_update": "fused_admm_update.cu", "bdot": "bdot.cu",
            "cg_tail": "cg_tail.cu", "bsr_matvec": "bsr_matvec.cu",
-           "csr_matvec": "csr_matvec.cu"}
+           "csr_matvec": "csr_matvec.cu", "mosaic_pcg": "mosaic_pcg.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -111,6 +115,18 @@ _SIGNATURES = {
         "dprox_csr_matvec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
     },
+    "mosaic_pcg": {
+        "dprox_mcg_otf_apply": [_P, _P, _I, _I, _I, _LL, _I, _P],
+        "dprox_mcg_mask": [_P, _F, _I, _I, _I, _I, _I, _P],
+        "dprox_mcg_gram": [_P, _P, _P, _I, _I, _F, _P, _P, _I, _I, _LL, _I, _P],
+        "dprox_mcg_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _P],
+        "dprox_mcg_precond": [_P, _P, _I, _I, _I, _LL, _I, _P],
+        "dprox_mcg_real": [_P, _F, _P, _I, _I, _LL, _I, _P],
+        "dprox_mcg_direction": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _LL, _I, _P],
+        "dprox_mcg_start": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P],
+        "dprox_mcg_residual": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _LL,
+                               _I, _P],
+    },
 }
 _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
                  "freq_divide": "dprox_freq_divide_error_string",
@@ -118,7 +134,8 @@ _ERROR_STRING = {"tv_denoise": "dprox_tv_error_string",
                  "bdot": "dprox_bdot_error_string",
                  "cg_tail": "dprox_cg_tail_error_string",
                  "bsr_matvec": "dprox_bsr_matvec_error_string",
-                 "csr_matvec": "dprox_csr_matvec_error_string"}
+                 "csr_matvec": "dprox_csr_matvec_error_string",
+                 "mosaic_pcg": "dprox_mcg_error_string"}
 
 _RESTYPES = {"dprox_tv_vjp_workspace": ctypes.c_longlong}  # the others return int
 
@@ -709,13 +726,34 @@ def bdot_plain(p, q):
     return torch.sum(p.reshape(B, -1) * q.reshape(B, -1), dim=1)
 
 
-def _bdot_launch(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def bdot_workspace(p: torch.Tensor) -> Optional[torch.Tensor]:
+    """The workspace ``bdot`` needs for rows like ``p``'s ([B, ...] on the
+    card), or None where a row is short enough for one block: made once by a
+    loop that calls ``bdot(..., out=, workspace=)`` every iteration."""
+    if _on_cpu(p):
+        return None
+    B = p.shape[0]
+    n = _lib("bdot").dprox_bdot_workspace(B, p.numel() // B, p.element_size())
+    if n < 0:
+        raise ValueError(f"bdot takes no {B} rows of {p.numel() // B} elements")
+    return torch.empty(n, dtype=p.dtype, device=p.device) if n > 0 else None
+
+
+def _bdot_launch(p: torch.Tensor, q: torch.Tensor, out=None, work=None) -> torch.Tensor:
     B, D = _rows((p, q), ("p", "q"), "bdot", (torch.float32, torch.float64))
     lib = _lib("bdot")
     entry = lib.dprox_bdot if p.dtype == torch.float32 else lib.dprox_bdot_f64
-    out = torch.empty(B, dtype=p.dtype, device=p.device)
+    if out is None:
+        out = torch.empty(B, dtype=p.dtype, device=p.device)
+    else:
+        _cuda_tensor(out, "out", p.dtype, p.device)
+        if out.numel() != B:
+            raise ValueError(f"out must hold {B} values, got {out.numel()}")
     n_work = lib.dprox_bdot_workspace(B, D, p.element_size())
-    work = torch.empty(n_work, dtype=p.dtype, device=p.device) if n_work > 0 else None
+    if work is None:
+        work = torch.empty(n_work, dtype=p.dtype, device=p.device) if n_work > 0 else None
+    elif work.dtype != p.dtype or work.device != p.device or work.numel() < n_work:
+        raise ValueError(f"the workspace must hold {n_work} {p.dtype} values on {p.device}")
     err = entry(p.data_ptr(), q.data_ptr(), out.data_ptr(),
                 work.data_ptr() if n_work > 0 else None, B, D, p.device.index,
                 torch.cuda.current_stream(p.device).cuda_stream)
@@ -741,19 +779,25 @@ class _BdotFn(torch.autograd.Function):
                 g * p if ctx.needs_input_grad[1] else None)
 
 
-def bdot(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def bdot(p: torch.Tensor, q: torch.Tensor, out: Optional[torch.Tensor] = None,
+         workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-batch dot products ``<p_b, q_b>`` over every dim but the first;
     returns [B].
 
     On the card: contiguous float32 or float64 operands, accumulation in
     their type, and a fixed summation order (no atomics), so two calls
     give the same bits. Differentiable in both operands on either device.
+    ``out`` ([B]) and ``workspace`` (``bdot_workspace``), where given, are
+    written instead of new tensors, on the card and without grad only; the
+    plain version returns a new tensor.
     """
     if _on_cpu(p):
         return bdot_plain(p, q)
     if _requires_grad(p, q):
+        if out is not None or workspace is not None:
+            raise ValueError("bdot under grad takes no out or workspace")
         return _BdotFn.apply(p, q)
-    return _bdot_launch(p, q)
+    return _bdot_launch(p, q, out, workspace)
 
 
 bdot.launches = 0
@@ -849,6 +893,252 @@ def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
 
 
 fused_cg_tail.launches = 0
+
+# --------------------------------------------------------------------------- #
+# Preconditioned CG on mosaic(conv(x)): the stages between the FFTs
+# --------------------------------------------------------------------------- #
+#
+# One wrapper a stage of linalg/structured.py::mosaic_conv_pcg (csrc/
+# mosaic_pcg.cu). Fields are [B, C, H, W]: float32, or complex64 where an
+# FFT reads or wrote them; the inverse FFTs before ``mcg_mask``, ``mcg_gram``,
+# ``mcg_real`` and ``mcg_residual`` are unscaled and ``scale`` is 1 / (H W).
+# On the card a wrapper writes the buffers it is given (in place where a
+# stage updates a field) and returns them; a plain version returns new
+# tensors with the same values, in the order of least_squares.solve_cg's
+# matvec and of ``linalg.solvers.pcg``. No autograd: the solve runs under
+# the implicit-gradient wrapper.
+
+def bayer_parity_mask(C: int, H: int, W: int, device=None) -> torch.Tensor:
+    """The RGGB mask as [1, C, H, W] float32 from (c, h, w) parity, as
+    csrc/mosaic_pcg.cu computes it: R where h and w are even, G where their
+    parities differ, B where both are odd (utils/imaging.py::bayer_mask for
+    C = 3)."""
+    h = torch.arange(H, device=device).reshape(H, 1) % 2
+    w = torch.arange(W, device=device).reshape(1, W) % 2
+    planes = [(h == 0) & (w == 0), h != w, (h == 1) & (w == 1)]
+    return torch.stack([planes[c % 3] for c in range(C)])[None].to(torch.float32)
+
+
+def _mcg_fields(ts, names, shape, device):
+    """Checks contiguous CUDA fields of ``shape`` (float32 or complex64);
+    returns (B, C, H * W)."""
+    for t, name in zip(ts, names):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {device}")
+        if t.dtype not in (torch.float32, torch.complex64) or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be float32 or complex64 of shape {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    B, C, H, W = shape
+    return B, C, H * W
+
+
+def _mcg_slots(ts, names, n: int, device, dtype=torch.float32):
+    """Checks the per-batch scalars a stage reads or writes: contiguous
+    ``dtype`` tensors of ``n`` values on ``device``."""
+    for t, name in zip(ts, names):
+        _cuda_tensor(t, name, dtype, device)
+        if t.numel() != n:
+            raise ValueError(f"{name} must hold {n} values, got {t.numel()}")
+
+
+def _mcg_call(entry: str, kernel, device, *args):
+    err = getattr(_lib("mosaic_pcg"), entry)(*args, device.index,
+                                             torch.cuda.current_stream(device).cuda_stream)
+    _check(err, "mosaic_pcg", kernel.__name__)
+    kernel.launches += 1
+
+
+def mcg_otf_apply_plain(F, otf, adjoint: bool):
+    """Plain PyTorch version of ``mcg_otf_apply``."""
+    return (torch.conj(otf) if adjoint else otf) * F
+
+
+def mcg_otf_apply(F: torch.Tensor, otf: torch.Tensor, adjoint: bool) -> torch.Tensor:
+    """``otf * F`` (``conj(otf) * F`` with ``adjoint``), F in place; ``otf``
+    [1, C, H, W] complex64, contiguous."""
+    if _on_cpu(F):
+        return mcg_otf_apply_plain(F, otf, adjoint)
+    B, C, hw = _mcg_fields((F,), ("F",), F.shape, F.device)
+    _mcg_fields((otf,), ("otf",), (1,) + tuple(F.shape[1:]), F.device)
+    _mcg_call("dprox_mcg_otf_apply", mcg_otf_apply, F.device, F.data_ptr(), otf.data_ptr(),
+              int(adjoint), B, C, hw)
+    return F
+
+
+def mcg_mask_plain(G, scale: float):
+    """Plain PyTorch version of ``mcg_mask``."""
+    m = bayer_parity_mask(*G.shape[1:], device=G.device)
+    return (m * (m * (G.real * scale))).to(torch.complex64)
+
+
+def mcg_mask(G: torch.Tensor, scale: float) -> torch.Tensor:
+    """``complex(m * (m * (scale * Re G)), 0)``, the Bayer mask's forward and
+    adjoint (``bayer_parity_mask``), G in place."""
+    if _on_cpu(G):
+        return mcg_mask_plain(G, scale)
+    B, C, H, W = G.shape
+    _mcg_fields((G,), ("G",), G.shape, G.device)
+    _mcg_call("dprox_mcg_mask", mcg_mask, G.device, G.data_ptr(), float(scale), B, C, H, W)
+    return G
+
+
+def mcg_gram_plain(Kc, p, rho, n_rho: int, scale: float):
+    """Plain PyTorch version of ``mcg_gram``."""
+    out = 0.0 + Kc.real * scale
+    for _ in range(n_rho):
+        out = out + rho * p
+    return out
+
+
+def mcg_gram(Kc: torch.Tensor, p: torch.Tensor, rho: torch.Tensor, n_rho: int, scale: float,
+             Ap: torch.Tensor, rmax: torch.Tensor) -> torch.Tensor:
+    """``A p = (0 + scale * Re Kc) + rho * p``, the last term ``n_rho`` times,
+    into ``Ap``; on the card it also zeroes ``rmax`` ([B]) for ``mcg_step``."""
+    if _on_cpu(p):
+        return mcg_gram_plain(Kc, p, rho, n_rho, scale)
+    B, C, hw = _mcg_fields((Kc, p, Ap), ("Kc", "p", "Ap"), p.shape, p.device)
+    _mcg_slots((rmax,), ("rmax",), B, p.device)
+    _mcg_call("dprox_mcg_gram", mcg_gram, p.device, Kc.data_ptr(), p.data_ptr(),
+              rho.data_ptr(), _per_item_scalar(rho, "rho", B, p.device), int(n_rho), float(scale),
+              Ap.data_ptr(), rmax.data_ptr(), B, C, hw)
+    return Ap
+
+
+def _bmax_plain(t):
+    return t.reshape(t.shape[0], -1).abs().amax(dim=1)
+
+
+def mcg_step_plain(x, r, p, Ap, rz, pAp):
+    """Plain PyTorch version of ``mcg_step``."""
+    alpha = _per_batch(rz / torch.clamp(pAp, min=1e-32), x)
+    x = x + alpha * p
+    r = r - alpha * Ap
+    return x, r, r.to(torch.complex64), _bmax_plain(r)
+
+
+def mcg_step(x, r, p, Ap, rz, pAp, r_c, rmax):
+    """``alpha = rz / max(pAp, 1e-32)``, ``x += alpha p``, ``r -= alpha Ap``
+    (x and r in place), ``r_c = complex(r)`` and ``rmax`` = max |r| per batch
+    element; returns (x, r, r_c, rmax)."""
+    if _on_cpu(x):
+        return mcg_step_plain(x, r, p, Ap, rz, pAp)
+    B, C, hw = _mcg_fields((x, r, p, Ap, r_c), ("x", "r", "p", "Ap", "r_c"), x.shape,
+                           x.device)
+    _mcg_slots((rz, pAp, rmax), ("rz", "pAp", "rmax"), B, x.device)
+    _mcg_call("dprox_mcg_step", mcg_step, x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+              Ap.data_ptr(), rz.data_ptr(), pAp.data_ptr(), r_c.data_ptr(), rmax.data_ptr(),
+              B, C, hw)
+    return x, r, r_c, rmax
+
+
+def mcg_precond_plain(R, mdiag):
+    """Plain PyTorch version of ``mcg_precond``."""
+    return R / mdiag
+
+
+def mcg_precond(R: torch.Tensor, mdiag: torch.Tensor) -> torch.Tensor:
+    """``R / mdiag``, the frequency-Jacobi preconditioner, R in place;
+    ``mdiag`` float32 [1 or B, C, H, W], contiguous."""
+    if _on_cpu(R):
+        return mcg_precond_plain(R, mdiag)
+    B, C, hw = _mcg_fields((R,), ("R",), R.shape, R.device)
+    _mcg_fields((mdiag,), ("mdiag",), (mdiag.shape[0],) + tuple(R.shape[1:]), R.device)
+    if mdiag.shape[0] not in (1, B):
+        raise ValueError(f"mdiag must hold 1 or {B} batch elements, got {mdiag.shape[0]}")
+    _mcg_call("dprox_mcg_precond", mcg_precond, R.device, R.data_ptr(), mdiag.data_ptr(),
+              int(mdiag.shape[0] == B and B > 1), B, C, hw)
+    return R
+
+
+def mcg_real_plain(Zc, scale: float):
+    """Plain PyTorch version of ``mcg_real``."""
+    return Zc.real * scale
+
+
+def mcg_real(Zc: torch.Tensor, scale: float, z: torch.Tensor) -> torch.Tensor:
+    """``z = scale * Re Zc``."""
+    if _on_cpu(Zc):
+        return mcg_real_plain(Zc, scale)
+    B, C, hw = _mcg_fields((Zc, z), ("Zc", "z"), z.shape, z.device)
+    _mcg_call("dprox_mcg_real", mcg_real, z.device, Zc.data_ptr(), float(scale), z.data_ptr(),
+              B, C, hw)
+    return z
+
+
+def mcg_direction_plain(z, p, rz_new, rz, rmax, bmax, rtol: float, first: bool):
+    """Plain PyTorch version of ``mcg_direction``."""
+    if not first:
+        p = z + _per_batch(rz_new / torch.clamp(rz, min=1e-32), p) * p
+    else:
+        p = z
+    flag = (rmax > rtol * torch.clamp(bmax, min=1e-32)).any()
+    return p, p.to(torch.complex64), flag
+
+
+def mcg_direction(z, p, rz_new, rz, p_c, rmax, bmax, rtol: float, flag, first: bool = False):
+    """``beta = rz_new / max(rz, 1e-32)``, ``p = z + beta p`` (with ``first``:
+    ``p = z``; p in place), ``p_c = complex(p)``, and the stop test ``flag =
+    any(rmax > rtol * max(bmax, 1e-32))`` (an int32 [1] on the card); returns
+    (p, p_c, flag)."""
+    if _on_cpu(z):
+        return mcg_direction_plain(z, p, rz_new, rz, rmax, bmax, rtol, first)
+    B, C, hw = _mcg_fields((z, p, p_c), ("z", "p", "p_c"), z.shape, z.device)
+    _mcg_slots((rz_new, rz, rmax, bmax), ("rz_new", "rz", "rmax", "bmax"), B, z.device)
+    _mcg_slots((flag,), ("flag",), 1, z.device, torch.int32)
+    _mcg_call("dprox_mcg_direction", mcg_direction, z.device, z.data_ptr(), p.data_ptr(),
+              rz_new.data_ptr(), rz.data_ptr(), p_c.data_ptr(), rmax.data_ptr(),
+              bmax.data_ptr(), float(rtol), flag.data_ptr(), int(first), B, C, hw)
+    return p, p_c, flag
+
+
+def mcg_start_plain(x0, b):
+    """Plain PyTorch version of ``mcg_start``."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    return x, x.to(torch.complex64)
+
+
+def mcg_start(x0, b, x, x_c, rmax, bmax):
+    """``x = x0`` (zeros where x0 is None), ``x_c = complex(x)``; on the card
+    it also zeroes ``rmax`` and ``bmax`` ([B]) for ``mcg_residual``; returns
+    (x, x_c)."""
+    if _on_cpu(b):
+        return mcg_start_plain(x0, b)
+    B, C, hw = _mcg_fields((x0, x, x_c), ("x0", "x", "x_c"), b.shape, b.device)
+    _mcg_slots((rmax, bmax), ("rmax", "bmax"), B, b.device)
+    _mcg_call("dprox_mcg_start", mcg_start, b.device,
+              None if x0 is None else x0.data_ptr(), x.data_ptr(), x_c.data_ptr(),
+              rmax.data_ptr(), bmax.data_ptr(), B, C, hw)
+    return x, x_c
+
+
+def mcg_residual_plain(Kc, b, x, rho, n_rho: int, scale: float):
+    """Plain PyTorch version of ``mcg_residual``."""
+    r = b - mcg_gram_plain(Kc, x, rho, n_rho, scale)
+    return r, r.to(torch.complex64), _bmax_plain(r), _bmax_plain(b)
+
+
+def mcg_residual(Kc, b, x, rho, n_rho: int, scale: float, r, r_c, rmax, bmax):
+    """``r = b - A x`` with ``A x`` as ``mcg_gram`` forms it from Kc, ``r_c =
+    complex(r)``, ``rmax`` = max |r| and ``bmax`` = max |b| per batch element;
+    returns (r, r_c, rmax, bmax)."""
+    if _on_cpu(b):
+        return mcg_residual_plain(Kc, b, x, rho, n_rho, scale)
+    B, C, hw = _mcg_fields((Kc, b, x, r, r_c), ("Kc", "b", "x", "r", "r_c"), b.shape,
+                           b.device)
+    _mcg_slots((rmax, bmax), ("rmax", "bmax"), B, b.device)
+    _mcg_call("dprox_mcg_residual", mcg_residual, b.device, Kc.data_ptr(), b.data_ptr(),
+              x.data_ptr(), rho.data_ptr(), _per_item_scalar(rho, "rho", B, b.device), int(n_rho),
+              float(scale), r.data_ptr(), r_c.data_ptr(), rmax.data_ptr(), bmax.data_ptr(),
+              B, C, hw)
+    return r, r_c, rmax, bmax
+
+
+MCG_KERNELS = (mcg_start, mcg_residual, mcg_otf_apply, mcg_mask, mcg_gram, mcg_step,
+               mcg_precond, mcg_real, mcg_direction)
+for _fn in MCG_KERNELS:
+    _fn.launches = 0
 
 # --------------------------------------------------------------------------- #
 # Sparse matrix-vector products: compressed rows and dense tiles
@@ -1073,7 +1363,7 @@ KERNELS = {"tv_denoise_chw": tv_denoise_chw, "tv_denoise_chw_vjp": tv_denoise_ch
            "freq_divide": freq_divide,
            "fused_admm_update": fused_admm_update, "bdot": bdot,
            "fused_cg_tail": fused_cg_tail, "bsr_matvec": bsr_matvec,
-           "csr_matvec": csr_matvec}
+           "csr_matvec": csr_matvec, **{fn.__name__: fn for fn in MCG_KERNELS}}
 
 
 def reset_launches():

@@ -28,7 +28,10 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..linalg import LinearSolveConfig, linear_solve
+from ..linalg.structured import mosaic_conv_pcg
 from ..linop.base import LinOp, Params, Placeholder, Variable, vstack
+from ..linop.base import sum as linop_sum
+from ..linop.ops import conv, mosaic
 from ..ops.kernels import freq_divide
 from ..utils.misc import expand_to_bchw, to_tensor
 from ..utils.profiling import span
@@ -122,6 +125,44 @@ def _freq_jacobi_minv(theta, r):
     (least_squares.prepare); M^{-1} r = F^{-1}(F r / Mdiag)."""
     out = _ifftn2(_fftn2(r) / theta[2])
     return out if r.is_complex() else out.real.to(r.dtype)
+
+
+def _linear_part(op: LinOp) -> Optional[LinOp]:
+    """``op`` without the constant branches of its ``sum`` nodes (an offset
+    such as ``- b``: zero in the x-update's matvec), or None where a sum
+    has more than one branch with a variable."""
+    while isinstance(op, linop_sum):
+        live = [c for c in op.children if not c.is_constant()]
+        if len(live) != 1:
+            return None
+        op = live[0]
+    return op
+
+
+def _mosaic_conv(quad_fns, other_fns) -> Optional[conv]:
+    """The ``conv`` node where the x-update's system is K^T K + n rho I with
+    K = ``mosaic(conv(x))`` of a static kernel: one quadratic term of that
+    operator and every other term's operator the variable itself. None
+    otherwise."""
+    if len(quad_fns) != 1:
+        return None
+    op = _linear_part(quad_fns[0].linop)
+    if not (isinstance(op, mosaic) and isinstance(op.children[0], conv)):
+        return None
+    kernel_op, var = op.children[0], op.children[0].children[0]
+    if not isinstance(var, Variable):
+        return None
+    if not all(isinstance(fn.linop, Variable) and fn.linop.name == var.name
+               for fn in other_fns):
+        return None
+    return kernel_op
+
+
+def _is_field(t, shape=None) -> bool:
+    """A contiguous float32 [B, 3, H, W] tensor (of ``shape`` where given)."""
+    return (isinstance(t, torch.Tensor) and t.dtype == torch.float32 and t.ndim == 4
+            and t.shape[1] == 3 and t.is_contiguous()
+            and (shape is None or t.shape == shape))
 
 
 class sum_squares(ProxFn):
@@ -264,6 +305,7 @@ class least_squares(ProxFn):
         self.freq_diagonalizable = (stacked.is_gram_diag(freq=True) and try_diagonalize
                                     and try_freq_diagonalize)
         super().__init__(stacked)
+        self._otf_held = None  # (conv's OTF, its contiguous copy) for the structured CG
         self.spatial_mesh = spatial_mesh
         if spatial_mesh is not None:
             if not self.freq_diagonalizable:
@@ -528,7 +570,39 @@ class least_squares(ProxFn):
             floor = 30 * torch.finfo(Ktb.dtype).eps
             cfg = dataclasses.replace(cfg, solver_type="pcg", rtol=max(cfg.rtol, floor))
             theta, Minv_fn = (rho, params or {}, Mdiag), _freq_jacobi_minv
-        return linear_solve(KtK, Ktb, theta=theta, config=cfg, x0=warm, Minv_fn=Minv_fn)
+            structured = self._structured_pcg(cfg, Ktb, rho, Mdiag, warm, with_v)
+        else:
+            structured = None
+        return linear_solve(KtK, Ktb, theta=theta, config=cfg, x0=warm, Minv_fn=Minv_fn,
+                            structured=structured)
+
+    def _structured_pcg(self, cfg, Ktb, rho, Mdiag, warm, with_v):
+        """The solve of ``linalg.structured.mosaic_conv_pcg`` where this
+        preconditioned x-update's system has its structure (``_mosaic_conv``)
+        and its tensors are float32 fields, under the implicit gradient;
+        else None and ``pcg`` runs as it is."""
+        kernel_op = _mosaic_conv(self.quad_fns, self.other_fns)
+        if (kernel_op is None or not cfg.use_analytic_grad
+                or not set(cfg.solver_kwargs) <= {"verbose"} or not _is_field(Ktb)
+                or (warm is not None and not _is_field(warm, Ktb.shape))
+                or rho.dtype != torch.float32 or rho.numel() not in (1, Ktb.shape[0])
+                or not isinstance(Mdiag, torch.Tensor) or Mdiag.dtype != torch.float32):
+            return None
+        otf = kernel_op._otf(Ktb.shape)
+        if self._otf_held is None or self._otf_held[0] is not otf:
+            self._otf_held = (otf, otf.contiguous())
+        otf = self._otf_held[1]
+        n_rho = len(self.other_fns) + (1 if with_v else 0)
+
+        def solve(theta, b, x0=None, rtol=1e-6, max_iters=100):
+            # theta = (rho, params, Mdiag): Mdiag as [1 or B, C, H, W]
+            rows = theta[2].shape[0] if theta[2].ndim == 4 else 1
+            mdiag = torch.broadcast_to(theta[2], (rows if rows in (1, b.shape[0]) else
+                                                  b.shape[0],) + tuple(b.shape[1:]))
+            return mosaic_conv_pcg(otf, n_rho, theta[0], mdiag.contiguous(), b, x0, rtol,
+                                   max_iters)
+
+        return solve
 
     def __repr__(self):
         return (f"least_squares(diagonalizable={self.diagonalizable}, "

@@ -1019,6 +1019,147 @@ def test_unrolled_solve_gradient_on_cuda_matches_cpu(cuda, prior):
 
 
 # --------------------------------------------------------------------------- #
+# The structured CG of mosaic(conv(x)) (csrc/mosaic_pcg.cu)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("shape", [(1, 3, 256, 256), (2, 3, 17, 19), (2, 3, 64, 66)])
+def test_mcg_stage_kernels_match_plain(cuda, shape):
+    """Each stage kernel against its plain version on the card (the
+    vectorised route at 256^2 and 64 x 66, element by element at 17 x 19;
+    rho per batch element), to chip_smoke.MCG_REL_TOL of the largest value;
+    the stop flag equal; one launch each."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(4)
+    B = shape[0]
+    c = lambda: torch.from_numpy((rng.randn(*shape) + 1j * rng.randn(*shape))
+                                 .astype(np.complex64)).to(cuda)
+    f = lambda: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    pos = lambda: torch.from_numpy((0.5 + rng.rand(B)).astype(np.float32)).to(cuda)
+    F, otf, x, r, p, Ap, b, z = c(), c()[:1].contiguous(), f(), f(), f(), f(), f(), f()
+    mdiag, rho = (0.1 + f().abs())[:1].contiguous(), pos().reshape(-1, 1, 1, 1)
+    rz, pAp, rz_new = pos(), pos(), pos()
+    rmax, bmax = r.flatten(1).abs().amax(1), 2 * b.flatten(1).abs().amax(1)
+    scale = 1.0 / (shape[2] * shape[3])
+    zeros = lambda: torch.zeros(B, device=cuda)
+    cbuf, buf = lambda: torch.empty_like(F), lambda: torch.empty_like(x)
+    flag = torch.empty(1, dtype=torch.int32, device=cuda)
+    pairs = {
+        "mcg_otf_apply": (lambda: kernels.mcg_otf_apply(F.clone(), otf, True),
+                          lambda: kernels.mcg_otf_apply_plain(F, otf, True)),
+        "mcg_mask": (lambda: kernels.mcg_mask(F.clone(), scale),
+                     lambda: kernels.mcg_mask_plain(F, scale)),
+        "mcg_gram": (lambda: kernels.mcg_gram(F, p, rho, 2, scale, buf(), zeros()),
+                     lambda: kernels.mcg_gram_plain(F, p, rho, 2, scale)),
+        "mcg_step": (lambda: kernels.mcg_step(x.clone(), r.clone(), p, Ap, rz, pAp, cbuf(),
+                                              zeros()),
+                     lambda: kernels.mcg_step_plain(x, r, p, Ap, rz, pAp)),
+        "mcg_precond": (lambda: kernels.mcg_precond(F.clone(), mdiag),
+                        lambda: kernels.mcg_precond_plain(F, mdiag)),
+        "mcg_real": (lambda: kernels.mcg_real(F, scale, buf()),
+                     lambda: kernels.mcg_real_plain(F, scale)),
+        "mcg_direction": (lambda: kernels.mcg_direction(z, p.clone(), rz_new, rz, cbuf(), rmax,
+                                                        bmax, 0.6, flag),
+                          lambda: kernels.mcg_direction_plain(z, p, rz_new, rz, rmax, bmax, 0.6,
+                                                              False)),
+        "mcg_start": (lambda: kernels.mcg_start(x, b, buf(), cbuf(), zeros(), zeros()),
+                      lambda: kernels.mcg_start_plain(x, b)),
+        "mcg_residual": (lambda: kernels.mcg_residual(F, b, x, rho, 1, scale, buf(), cbuf(),
+                                                      zeros(), zeros()),
+                         lambda: kernels.mcg_residual_plain(F, b, x, rho, 1, scale))}
+    for name, (run, plain) in pairs.items():
+        before = getattr(kernels, name).launches
+        got, ref = run(), plain()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        assert getattr(kernels, name).launches == before + 1
+        if name == "mcg_direction":
+            assert bool(got[2].item()) == bool(ref[2]) and bool(ref[2]) in (True, False)
+            got, ref = got[:2], ref[:2]
+        for g, rf in zip(got, ref):
+            assert g.shape == rf.shape and g.dtype == rf.dtype, name
+            err = float((g - rf).abs().max() / rf.abs().max().clamp(min=1e-30))
+            assert err <= cs.MCG_REL_TOL, (name, err)
+
+
+def test_mcg_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """Shapes, dtypes, devices and contiguity are checked before a pointer
+    reaches a stage kernel; nothing is launched on a refusal."""
+    shape = (2, 3, 8, 8)
+    x = torch.zeros(shape, device=cuda)
+    c = torch.zeros(shape, dtype=torch.complex64, device=cuda)
+    s2, s1 = torch.zeros(2, device=cuda), torch.zeros(1, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError):  # rz of one value for two batch elements
+        kernels.mcg_step(x, x.clone(), x, x, s1, s2, c, s2.clone())
+    with pytest.raises(ValueError):  # a strided field
+        kernels.mcg_real(c.transpose(2, 3), 1.0, x)
+    with pytest.raises(ValueError):  # float64
+        kernels.mcg_gram(c, x.double(), s1, 1, 1.0, x, s2)
+    with pytest.raises(ValueError):  # an OTF of another shape
+        kernels.mcg_otf_apply(c, c[:1, :, :4].contiguous(), False)
+    with pytest.raises(TypeError):  # the flag is int32
+        kernels.mcg_direction(x, x, s2, s2, c, s2, s2, 0.1, torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError):  # a field on the CPU
+        kernels.mcg_precond(c, torch.ones(1, 3, 8, 8))
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("size", [256, 2048])
+def test_structured_cg_matches_pcg_on_the_card(cuda, size):
+    """One x-update of the jdd_ffdnet system at 3 x size^2 by the structured
+    solve and by linalg.pcg, at the schedule's first and last rho: the same
+    iterations, K(x) within chip_smoke.MCG_DATA_TOL (the cell's
+    data_max_err limit is 1e-3); and the structured solve's launches: each
+    stage kernel as often as the iterations say, bdot 2k + 1, no divide and
+    no CG tail."""
+    cs = _chip_smoke()
+    system = cs.mcg_system(dp, size, cuda)
+    for rho in (system.rhos[0], system.rhos[-1]):
+        kernels.reset_launches()
+        got = cs.mcg_solves(dp, kernels, system, rho)
+        counts = kernels.launch_counts()
+        it_s, it_pcg = got["iterations_structured"], got["iterations_pcg"]
+        assert it_s == it_pcg > 0 and got["data_max_err"] <= cs.MCG_DATA_TOL, (rho, got)
+        # two warm and two timed solves of each: per structured solve of k
+        # iterations, a matvec a set-up and an iteration
+        k, n = it_s, 2
+        assert counts == dict.fromkeys(counts, 0) | {
+            "bdot": n * (2 * k + 1) + n * (2 * it_pcg + 1),
+            "mcg_start": n, "mcg_residual": n, "mcg_otf_apply": n * 2 * (k + 1),
+            "mcg_mask": n * (k + 1), "mcg_gram": n * k, "mcg_step": n * k,
+            "mcg_precond": n * (k + 1), "mcg_real": n * (k + 1), "mcg_direction": n * (k + 1)}
+
+
+def test_the_jdd_xupdate_takes_the_structured_cg_on_the_card(cuda):
+    """The jdd_ffdnet problem through dp.compile on the card: every x-update
+    is a structured solve (the counter), through the stage kernels, with no
+    divide and no CG tail; the answer against the CPU's within 1e-4."""
+    from dprox_tpu_torch.utils import profiling
+
+    img = torch.from_numpy(np.ascontiguousarray(
+        imaging._synthetic_face(512, 512)[:128, :128].transpose(2, 0, 1)[None]))
+    psf = imaging.point_spread_function(15, 3)
+    b = imaging.mosaicing(imaging.blurring(img, psf))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        x = dp.Variable()
+        solver = dp.compile(dp.sum_squares(dp.mosaic(dp.conv(x, psf)) - dp.Placeholder("b"))
+                            + dp.deep_prior(x, "tv"), "admm", device=device,
+                            linear_solve_config=dp.LinearSolveConfig(max_iters=50))
+        kernels.reset_launches()
+        profiling.reset_counts()
+        bd = b.to(device)
+        outs[device] = solver.solve(x0=dp.utils.demosaic_from_mosaiced(bd), rhos=0.3,
+                                    lams=0.02, max_iter=4, params={"b": bd}).cpu()
+        counts, launches = profiling.counts(), kernels.launch_counts()
+        assert counts["linalg.structured_pcg_solves"] == counts["linalg.solves"] == 4
+        if device == "cuda":
+            assert launches["mcg_step"] == counts["linalg.iterations"] > 0
+            assert launches["bdot"] == 2 * counts["linalg.iterations"] + 4
+            assert launches["freq_divide"] == launches["fused_cg_tail"] == 0
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
 # The prior family and the other solvers on the card
 # --------------------------------------------------------------------------- #
 

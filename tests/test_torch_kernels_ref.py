@@ -162,7 +162,10 @@ def test_solver_wrappers_take_plain_version_on_cpu():
     assert set(kernels.launch_counts()) == {"tv_denoise_chw", "tv_denoise_chw_vjp",
                                             "freq_divide", "bsr_matvec",
                                             "csr_matvec", "fused_admm_update", "bdot",
-                                            "fused_cg_tail", "freq_divide_complex"}
+                                            "fused_cg_tail", "freq_divide_complex",
+                                            "mcg_start", "mcg_residual", "mcg_otf_apply",
+                                            "mcg_mask", "mcg_gram", "mcg_step",
+                                            "mcg_precond", "mcg_real", "mcg_direction"}
     assert set(kernels.launch_counts().values()) == {0}
 
 

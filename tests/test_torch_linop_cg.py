@@ -101,12 +101,27 @@ def test_bayer_utilities_match_jax():
 
 
 def _record_solver_calls(monkeypatch):
-    """Wraps every entry of the port's SOLVERS; returns a list that gets one
+    """Wraps every entry of the port's SOLVERS and the structured CG of
+    mosaic(conv(x)) (linalg/structured.py); returns a list that gets one
     [name, inner iterations] per solver call. cg, pcg and cg_pallas apply A
-    once in their set-up and once per iteration."""
-    from dprox_tpu_torch.linalg import solve as solve_module
+    once in their set-up and once per iteration; the structured solve's
+    iterations are its count in ``linalg.iterations``."""
+    import importlib
 
+    from dprox_tpu_torch.linalg import solve as solve_module
+    from dprox_tpu_torch.utils import profiling
+
+    ss_module = importlib.import_module("dprox_tpu_torch.proxfn.sum_squares")
     called = []
+    structured = ss_module.mosaic_conv_pcg
+
+    def structured_solve(*args, **kw):
+        before = profiling.counts().get("linalg.iterations", 0)
+        x = structured(*args, **kw)
+        called.append(["mosaic_conv_pcg", profiling.counts()["linalg.iterations"] - before])
+        return x
+
+    monkeypatch.setattr(ss_module, "mosaic_conv_pcg", structured_solve)
 
     def wrap(name, fn):
         def solver(A, b, **kw):
@@ -132,11 +147,13 @@ def _joint(pkg, arr, cfg):
     return solver.least_square
 
 
-@pytest.mark.parametrize("solver_type,runs", [("cg", "pcg"), ("cg_pallas", "cg_pallas")])
+@pytest.mark.parametrize("solver_type,runs", [("cg", "mosaic_conv_pcg"),
+                                               ("cg_pallas", "cg_pallas")])
 def test_solve_cg_matches_jax(solver_type, runs, monkeypatch):
     """One CG x-update of the joint demosaic + deconvolution problem:
-    ``cg`` is upgraded to pcg with the frequency-Jacobi preconditioner,
-    ``cg_pallas`` runs unpreconditioned through the fused tail."""
+    ``cg`` is upgraded to pcg with the frequency-Jacobi preconditioner, which
+    this operator runs as the structured ``mosaic_conv_pcg``; ``cg_pallas``
+    runs unpreconditioned through the fused tail."""
     called = _record_solver_calls(monkeypatch)
     b = np.array(jimaging.mosaicing(jimaging.blurring(jnp.asarray(X), PSF)))
     v = RNG.rand(*SHAPE).astype(np.float32)

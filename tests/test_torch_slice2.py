@@ -111,13 +111,18 @@ def _joint_solve(pkg, arr, config, schedule, psf, b):
 @pytest.mark.parametrize("config", list(JOINT_CONFIGS))
 def test_joint_demosaic_deconv_matches_jax(config, schedule, monkeypatch):
     from dprox_tpu_torch.linalg import solve as solve_module
+    from dprox_tpu_torch.linalg import structured
 
     matvecs = []  # of the port's x-updates: one per inner iteration, one per set-up
-    name = "cg_pallas" if config == "cg_pallas" else "pcg"
-    solver_fn = solve_module.SOLVERS[name]
-    monkeypatch.setitem(
-        solve_module.SOLVERS, name,
-        lambda A, b, **kw: solver_fn(lambda v: (matvecs.append(1), A(v))[1], b, **kw))
+    if config == "cg_pallas":
+        solver_fn = solve_module.SOLVERS["cg_pallas"]
+        monkeypatch.setitem(
+            solve_module.SOLVERS, "cg_pallas",
+            lambda A, b, **kw: solver_fn(lambda v: (matvecs.append(1), A(v))[1], b, **kw))
+    else:  # pcg on this operator: the structured solve, whose matvec is gram_spectrum
+        gram = structured.gram_spectrum
+        monkeypatch.setattr(structured, "gram_spectrum",
+                            lambda *a: (matvecs.append(1), gram(*a))[1])
     img, psf, b = _joint_observation()
     got, init = _joint_solve(dp, torch.from_numpy, config, schedule, psf, b)
     ref, _ = _joint_solve(jdp, jnp.asarray, config, schedule, psf, b)

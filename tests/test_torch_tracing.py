@@ -155,7 +155,13 @@ def test_an_early_stop_counts_k_for_k_plus_one_matvecs(name):
 
 def test_the_xupdate_record_carries_the_solve_count(monkeypatch):
     """The CG x-update's span holds the iterations its solve ran: k, for
-    the k + 1 matvecs that the solver's A made."""
+    the k + 1 matvecs that the solver made (the solver's A, or the
+    structured CG's ``gram_spectrum`` on this mosaic(conv(x)) problem)."""
+    import importlib
+
+    from dprox_tpu_torch.linalg import structured
+
+    ss_module = importlib.import_module("dprox_tpu_torch.proxfn.sum_squares")
     solver, b = _problem("cg")
     matvecs = []
 
@@ -168,6 +174,11 @@ def test_the_xupdate_record_carries_the_solve_count(monkeypatch):
 
     for name in ("cg", "pcg"):
         monkeypatch.setitem(solvers.SOLVERS, name, counted(solvers.SOLVERS[name]))
+    structured_solve, gram = ss_module.mosaic_conv_pcg, structured.gram_spectrum
+    monkeypatch.setattr(ss_module, "mosaic_conv_pcg",
+                        lambda *a, **kw: (matvecs.append([]), structured_solve(*a, **kw))[1])
+    monkeypatch.setattr(structured, "gram_spectrum",
+                        lambda *a: (matvecs[-1].append(1), gram(*a))[1])
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         solver.solve(x0=b, rhos=0.1, lams=0.05, max_iter=1, params={"b": b})
     (xupdate,) = [r for r in profiling.span_records() if r["name"] == "dprox.xupdate"]
