@@ -8,7 +8,8 @@ BENCHMARK.json gives it:
     portbench/configs/<config>.py    build(traffic, seed, device) -> Case
     portbench/configs/<config>.json  the configuration's sizes and limits
     portbench/traffic/<cell>.json    size, batch, iterations, schedule, pool
-    portbench/metrics/<metric>.py    read(run: TracedRun) -> float or None
+    portbench/metrics/<metric>.py    read(run: TracedRun) -> float or None,
+                                     or raise Absent(<span or counter>)
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ import math
 import sys
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +34,9 @@ ROOT = PKG.parent
 #: top-level module names that no process of the benchmark may load: the
 #: JAX package the port was made from, and JAX itself
 FORBIDDEN = ("jax", "jaxlib", "flax", "dprox_tpu")
+#: the sources of the per-layer metrics that may say the program has no
+#: such span or counter (``Absent``); a kernel that is not found fails a run
+ABSENT_SOURCES = ("program_span", "program_counter")
 
 
 # --------------------------------------------------------------------------- #
@@ -145,10 +149,24 @@ class MissingMetric(Exception):
     """A per-layer metric read nothing in a cell it is listed for."""
 
 
+class Absent(Exception):
+    """What a per-layer metric's reader raises where the program under test
+    has no span or counter named ``source`` (a parent older than the span,
+    say). The harness checks that the run produced no such name anywhere,
+    and then leaves the metric out of the result line; a name the run did
+    produce, or a metric whose source is not a span or counter, fails the
+    run as ``MissingMetric``."""
+
+    def __init__(self, source: str):
+        super().__init__(source)
+        self.source = source
+
+
 @dataclass
 class TracedRun:
     """What a per-layer metric reads: the traced stretch's trace, the
-    port's launch counters over it, and the counts of its work."""
+    port's launch counters and program counters over it, and the counts of
+    its work."""
 
     trace: tr.Trace
     lo: float  # the stretch, in the trace's microseconds
@@ -158,10 +176,21 @@ class TracedRun:
     images_per_call: int
     launches: Dict[str, int]
     counts: dict
+    #: the program's counters (``profiling.counts()``), by how much each
+    #: moved between the profiler's start and its stop
+    counters: Dict[str, int] = field(default_factory=dict)
+    #: every counter the program held at the end of the run
+    counter_names: FrozenSet[str] = frozenset()
 
     @property
     def seconds(self) -> float:
         return (self.hi - self.lo) * 1e-6
+
+    @property
+    def names(self) -> Set[str]:
+        """Every span and counter name the run produced: each event name in
+        the exported trace, and each counter of the program."""
+        return self.trace.names | self.counter_names
 
     @property
     def cg_inner(self) -> Optional[float]:
@@ -196,6 +225,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     case = cfg.build(mix, seed, device)
     t_built = time.perf_counter()
     from dprox_tpu_torch.ops import kernels
+    from dprox_tpu_torch.utils import profiling
 
     order_rng = np.random.default_rng([seed, 1])
     order: List[int] = []
@@ -213,7 +243,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     kept = Reservoir(mix["checked"], seed)
     latencies: List[float] = []
     failed, first_error = 0, None
-    profiler, launches = None, {}
+    profiler, launches, counters, counters_from = None, {}, {}, {}
     trace_from, trace_to = 1, 1 + mix["trace_calls"]
     start = time.perf_counter()
     deadline = start + seconds
@@ -222,6 +252,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
         if trace and i == trace_from:
             profiler = _profiler(device)
             kernels.reset_launches()
+            counters_from = profiling.counts()
             profiler.start()
         span = (torch.profiler.record_function(tr.CALL_SPAN) if profiler is not None
                 and trace_from <= i < trace_to else contextlib.nullcontext())
@@ -243,6 +274,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
         if profiler is not None and i == trace_to:
             profiler.stop()
             launches = kernels.launch_counts()
+            counters = {k: v - counters_from.get(k, 0) for k, v in profiling.counts().items()}
         # a traced run ends once its stretch is recorded and every answer
         # it checks has been drawn (or, where calls fail, at the deadline)
         drawn = kept.seen >= mix["checked"] or end >= deadline
@@ -255,7 +287,8 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     memory_peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
     traced = None
     if trace:
-        traced = _read_trace(profiler, trace_dir, case, mix, launches)
+        traced = _read_trace(profiler, trace_dir, case, mix, launches, counters,
+                             frozenset(profiling.counts()))
     case.call = out = None  # the program's state goes before the reference runs
     _sync(device)
 
@@ -272,15 +305,9 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     correct = (failed == 0 and len(kept.items) > 0
                and all(c["value"] <= c["limit"] for c in checks.values()))
 
-    metrics = {}
+    metrics, left_out = {}, []
     if trace:
-        for m in bench["per_layer"]:
-            if applies(m, cell):
-                value = metric(m["name"], base)(traced)
-                if value is None:
-                    raise MissingMetric(f"{m['name']} found nothing to read in {cell}, which "
-                                        "BENCHMARK.json lists it for")
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        metrics, left_out = layer_metrics(bench, cell, traced, base)
     else:
         values = {"setup_s": setup_s,
                   "images_per_s": case.images_per_call * (len(latencies) - failed) / window_s,
@@ -299,10 +326,41 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     lines = [f"setup: {t_build - t0:.3f} s imports, {t_built - t_build:.3f} s inputs, weights "
              f"and the compiled problem, {setup_s - (t_built - t0):.3f} s warm calls (kernels "
              "built on first use)"]
+    lines += left_out
     lines += [f"check {name}: {c['value']!r} limit {c['limit']!r}" for name, c in checks.items()]
     lines.append(f"check answers compared: {len(kept.items)} of {len(latencies)} calls, "
                  f"{failed} failed")
     return result, lines
+
+
+def layer_metrics(bench: dict, cell: str, run: TracedRun,
+                  base: Path = PKG) -> Tuple[Dict[str, dict], List[str]]:
+    """The per-layer metrics that BENCHMARK.json lists for ``cell``, read
+    from ``run``, and a line for each that is left out because the program
+    has no span or counter that it reads. A metric that reads None, or
+    that says a name is absent which the run produced, raises
+    ``MissingMetric``."""
+    metrics, left_out = {}, []
+    for m in bench["per_layer"]:
+        if not applies(m, cell):
+            continue
+        try:
+            value = metric(m["name"], base)(run)
+        except Absent as e:
+            if m["source"] not in ABSENT_SOURCES:
+                raise MissingMetric(f"{m['name']} ({m['source']}) says the program has no "
+                                    f"{e.source}; only a metric of a span or counter "
+                                    f"({', '.join(ABSENT_SOURCES)}) may") from e
+            if not e.source or e.source in run.names:
+                raise MissingMetric(f"{m['name']} says the program has no {e.source!r}, which "
+                                    f"this run of {cell} produced") from e
+            left_out.append(f"metric {m['name']}: left out, the program has no {e.source}")
+            continue
+        if value is None:
+            raise MissingMetric(f"{m['name']} found nothing to read in {cell}, which "
+                                "BENCHMARK.json lists it for")
+        metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    return metrics, left_out
 
 
 def _profiler(device):
@@ -314,7 +372,8 @@ def _profiler(device):
     return profile(activities=activities)
 
 
-def _read_trace(profiler, trace_dir: Path, case, mix: dict, launches: dict) -> TracedRun:
+def _read_trace(profiler, trace_dir: Path, case, mix: dict, launches: dict, counters: dict,
+                counter_names: FrozenSet[str]) -> TracedRun:
     trace_dir.mkdir(parents=True, exist_ok=True)
     path = trace_dir / "trace.json"
     profiler.export_chrome_trace(str(path))
@@ -322,7 +381,8 @@ def _read_trace(profiler, trace_dir: Path, case, mix: dict, launches: dict) -> T
     lo, hi = trace.window()
     return TracedRun(trace=trace, lo=lo, hi=hi, calls=len(trace.calls()),
                      iterations=case.iterations, images_per_call=case.images_per_call,
-                     launches=launches, counts=case.counts)
+                     launches=launches, counts=case.counts, counters=counters,
+                     counter_names=counter_names)
 
 
 def _device(device, chips: int, memory_peak: int) -> dict:

@@ -1,0 +1,19 @@
+"""The prior's device time an ADMM iteration: the kernels launched inside
+the program's ``dprox.prox`` spans (every prox of a psi term: in these
+cells FFDNet with its fused TV), each matched to its launch by the
+trace's correlation id, summed over the stretch and divided by its
+iterations. Where the program has no such span, it says so."""
+from portbench import harness
+from portbench import trace as tr
+
+SPAN = "dprox.prox"
+
+
+def read(run):
+    kernels = tr.span_kernels(run.trace, SPAN, run.lo, run.hi)
+    if kernels is None:
+        raise harness.Absent(SPAN)
+    iterations = run.calls * run.iterations
+    if not kernels or not iterations:
+        return None
+    return sum(k.dur for k in kernels) * 1e-3 / iterations

@@ -12,8 +12,16 @@ and prints one JSON line last on standard output. ``--trace 1`` records a
 stretch of the window with torch.profiler (under build/portbench/) and
 reports the per-layer metrics instead of the end-to-end ones; it ends once
 that stretch is recorded and the answers it checks are drawn. Without the
-cards it asks for, or where a per-layer metric listed for the cell reads
-nothing, it exits non-zero and prints no result.
+cards it asks for it exits 2 and prints no result.
+
+A per-layer metric listed for the cell that reads nothing (its reader
+returns None) exits 4 and prints no result. A reader of a span or counter
+(source program_span or program_counter) may instead raise
+harness.Absent(name): where the run produced that name nowhere (no event
+of the trace, no counter of the program), the result line leaves the
+metric out and standard error says "metric <metric>: left out, the
+program has no <name>"; where it did, or where the metric reads the
+device trace, the run exits 4 as for None.
 """
 import time
 

@@ -10,9 +10,11 @@ events.
 """
 from __future__ import annotations
 
+import bisect
 import json
+import math
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 #: the span the harness records around each call of the timed path
 CALL_SPAN = "portbench.call"
@@ -72,6 +74,9 @@ class Event:
     name: str
     start: float  # us
     end: float    # us
+    #: the id that links a kernel, copy or set to the runtime call that
+    #: launched it (None where the trace gives none)
+    correlation: Optional[int] = None
 
     @property
     def dur(self) -> float:
@@ -87,15 +92,22 @@ class Trace:
     runtime: List[Event] = field(default_factory=list)   # CUDA runtime and driver calls
     cpu_ops: List[Event] = field(default_factory=list)   # operators on the host
     spans: List[Event] = field(default_factory=list)     # record_function spans
+    other: List[Event] = field(default_factory=list)     # host ranges of any other category
+    #: every event name in the exported trace, of any kind and category
+    names: Set[str] = field(default_factory=set)
 
     @classmethod
     def from_chrome(cls, obj) -> "Trace":
         out = cls()
         for e in obj.get("traceEvents", []):
+            if "name" in e:
+                out.names.add(str(e["name"]))
             if e.get("ph") != "X" or "dur" not in e:
                 continue
             cat = str(e.get("cat", "")).lower()
-            ev = Event(str(e.get("name", "")), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            link = (e.get("args") or {}).get("correlation")
+            ev = Event(str(e.get("name", "")), float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                       None if link is None else int(link))
             if cat == "kernel":
                 out.kernels.append(ev)
             elif cat in ("gpu_memcpy", "gpu_memset"):
@@ -106,7 +118,9 @@ class Trace:
                 out.cpu_ops.append(ev)
             elif cat == "user_annotation":
                 out.spans.append(ev)
-        for lst in (out.kernels, out.copies, out.runtime, out.cpu_ops, out.spans):
+            elif not cat.startswith("gpu_"):
+                out.other.append(ev)
+        for lst in (out.kernels, out.copies, out.runtime, out.cpu_ops, out.spans, out.other):
             lst.sort(key=lambda ev: (ev.start, -ev.end))
         return out
 
@@ -128,6 +142,14 @@ class Trace:
     def device_ops(self) -> List[Event]:
         return sorted(self.kernels + self.copies, key=lambda ev: ev.start)
 
+    def ranges(self, name: str) -> List[Event]:
+        """The host ranges named ``name`` (a span of the program), whatever
+        category the profiler filed them under: torch's fast record, which
+        the port's spans use, is a ``cpu_op``; ``record_function`` a
+        ``user_annotation``."""
+        return sorted((e for e in self.cpu_ops + self.spans + self.other if e.name == name),
+                      key=lambda ev: (ev.start, -ev.end))
+
 
 def within(events: Iterable[Event], lo: float, hi: float) -> List[Event]:
     """Events that start inside [lo, hi)."""
@@ -145,6 +167,29 @@ def merged(events: Iterable[Event], lo: float, hi: float) -> List[Tuple[float, f
         else:
             out.append((s, t))
     return out
+
+
+def launched_in(trace: Trace, ranges: Iterable[Event]) -> List[Event]:
+    """The kernels whose launch lies inside one of ``ranges``: the runtime
+    call that the trace links to the kernel by its correlation id starts
+    within a range. Nested or overlapping ranges count a kernel once."""
+    cover = merged(ranges, -math.inf, math.inf)
+    starts = [s for s, _ in cover]
+    ids = set()
+    for e in trace.runtime:
+        i = bisect.bisect_right(starts, e.start) - 1
+        if e.correlation is not None and i >= 0 and e.start < cover[i][1]:
+            ids.add(e.correlation)
+    return [k for k in trace.kernels if k.correlation in ids]
+
+
+def span_kernels(trace: Trace, name: str, lo: float, hi: float) -> Optional[List[Event]]:
+    """The kernels launched inside the spans named ``name`` that start in
+    [lo, hi); None where the trace holds no such span at all."""
+    ranges = trace.ranges(name)
+    if not ranges:
+        return None
+    return launched_in(trace, within(ranges, lo, hi))
 
 
 def busy_us(events: Iterable[Event], lo: float, hi: float) -> float:
