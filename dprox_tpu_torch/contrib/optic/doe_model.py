@@ -21,6 +21,7 @@ from torch import nn
 
 from ...utils.fft import psf2otf_traced
 from ...utils.misc import resolve_device
+from ...utils.profiling import span
 
 
 def get_coordinate(nx: int, ny: int, dx: float, dy: float):
@@ -151,10 +152,12 @@ class FresnelPropagator(nn.Module):
 
 def simulate_psf(model: nn.Module, phase_profile: torch.Tensor) -> torch.Tensor:
     """The PSF of ``phase_profile`` through ``model``'s aperture and
-    propagator: |field|^2 block-summed to the patch, normalised to sum 1."""
-    field = model.propagator(model.aperture * (phase_profile * model.input_field))
-    psfs = area_downsampling(field.abs() ** 2, model.patch_size)
-    return psfs / psfs.sum()
+    propagator: |field|^2 block-summed to the patch, normalised to sum 1.
+    Traced as the span ``dprox.optic`` (utils/profiling.py)."""
+    with span("dprox.optic"):
+        field = model.propagator(model.aperture * (phase_profile * model.input_field))
+        psfs = area_downsampling(field.abs() ** 2, model.patch_size)
+        return psfs / psfs.sum()
 
 
 class RGBCollimator(nn.Module):

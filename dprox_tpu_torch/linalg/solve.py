@@ -8,10 +8,12 @@ backward pass is a ``torch.autograd.Function``:
               gtheta = vjp_theta(-A(theta, x*))(gb)
 
 so gradients are exact at the solution whatever the solver's iteration
-count, and the solver loop is never differentiated through. With
-``use_analytic_grad=False`` the solve is instead ``cg_unrolled``, a fixed
-number of CG iterations that autograd differentiates step by step (on the
-card through ``bdot``'s own backward).
+count, and the solver loop is never differentiated through. The backward
+runs inside ``span("dprox.vjp")`` and counts in ``ops.vjps``
+(utils/profiling.py). With ``use_analytic_grad=False`` the solve is
+instead ``cg_unrolled``, a fixed number of CG iterations that autograd
+differentiates step by step (on the card through ``bdot``'s own
+backward).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..utils.profiling import vjp_span
 from .solvers import SOLVERS, cg_unrolled, pcg
 
 Array = torch.Tensor
@@ -92,35 +95,36 @@ class _ImplicitSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, *leaves = ctx.saved_tensors
-        config, A_fn, Minv_fn, rebuild = ctx.config, ctx.A_fn, ctx.Minv_fn, ctx.rebuild
-        theta = rebuild(leaves)
-        if config.symmetric:
-            AT = lambda v: A_fn(theta, v)
-        else:
-            def AT(v):  # A is linear: its VJP at any point is the transpose
+        with vjp_span():
+            x, *leaves = ctx.saved_tensors
+            config, A_fn, Minv_fn, rebuild = ctx.config, ctx.A_fn, ctx.Minv_fn, ctx.rebuild
+            theta = rebuild(leaves)
+            if config.symmetric:
+                AT = lambda v: A_fn(theta, v)
+            else:
+                def AT(v):  # A is linear: its VJP at any point is the transpose
+                    with torch.enable_grad():
+                        z = torch.zeros_like(v, requires_grad=True)
+                        (out,) = torch.autograd.grad(A_fn(theta, z), z, v)
+                    return out
+            # the same SPD preconditioner accelerates the transpose solve
+            Minv = None if Minv_fn is None else (lambda r: Minv_fn(theta, r))
+            gb = _run_solver(config, AT, g.contiguous(), Minv=Minv,
+                             structured=ctx.structured if config.symmetric else None, theta=theta)
+            # dtheta: VJP of theta -> -A(theta, x*) applied to gb
+            gleaves = [None] * len(leaves)
+            wanted = [i for i in range(len(leaves))
+                      if ctx.needs_input_grad[7 + i] and leaves[i].is_floating_point()]
+            if wanted:
                 with torch.enable_grad():
-                    z = torch.zeros_like(v, requires_grad=True)
-                    (out,) = torch.autograd.grad(A_fn(theta, z), z, v)
-                return out
-        # the same SPD preconditioner accelerates the transpose solve
-        Minv = None if Minv_fn is None else (lambda r: Minv_fn(theta, r))
-        gb = _run_solver(config, AT, g.contiguous(), Minv=Minv,
-                         structured=ctx.structured if config.symmetric else None, theta=theta)
-        # dtheta: VJP of theta -> -A(theta, x*) applied to gb
-        gleaves = [None] * len(leaves)
-        wanted = [i for i in range(len(leaves))
-                  if ctx.needs_input_grad[7 + i] and leaves[i].is_floating_point()]
-        if wanted:
-            with torch.enable_grad():
-                live = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(leaves)]
-                out = A_fn(rebuild(live), x)
-                grads = torch.autograd.grad(out, [live[i] for i in wanted], gb,
-                                            allow_unused=True)
-            for i, gt in zip(wanted, grads):
-                gleaves[i] = None if gt is None else -gt
-        # the converged solution does not depend on the warm start: no grad for x0
-        return (None, None, None, None, None, gb, None, *gleaves)
+                    live = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(leaves)]
+                    out = A_fn(rebuild(live), x)
+                    grads = torch.autograd.grad(out, [live[i] for i in wanted], gb,
+                                                allow_unused=True)
+                for i, gt in zip(wanted, grads):
+                    gleaves[i] = None if gt is None else -gt
+            # the converged solution does not depend on the warm start: no grad for x0
+            return (None, None, None, None, None, gb, None, *gleaves)
 
 
 def linear_solve(A_fn: Callable, b: Array, theta=None,

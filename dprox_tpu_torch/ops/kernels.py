@@ -52,7 +52,8 @@ differentiates its jnp references: the closed-form VJPs
 ``freq_divide_vjp``, ``fused_admm_update_vjp`` (a tie takes half, as
 ``jnp.maximum`` gives) and ``fused_cg_tail_vjp``, and ``bdot``'s products.
 ``BSRMat`` gives the sparse products their backward (the transposed
-apply).
+apply). Each Function's backward runs inside ``span("dprox.vjp")`` and adds
+one to the counter ``ops.vjps`` (utils/profiling.py ``vjp_span``).
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ import numpy as np
 import torch
 
 from ..models.tv import _clip, _dh_w, _dht_w, _dv_w, _dvt_w, _lam, tv_denoising_chw
+from ..utils.profiling import vjp_span
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -387,10 +389,11 @@ class _TVFn(torch.autograd.Function):
         if torch.is_grad_enabled():  # create_graph=True
             raise RuntimeError("tv_denoise_chw's backward kernel is not differentiable: "
                                "no double backward (create_graph=True)")
-        codes, lam = ctx.saved_tensors
-        dy, dlam = _tv_vjp_launch(codes, lam, ctx.iterations, g)
-        return (dy if ctx.needs_input_grad[0] else None,
-                dlam if ctx.needs_input_grad[1] else None, None)
+        with vjp_span():
+            codes, lam = ctx.saved_tensors
+            dy, dlam = _tv_vjp_launch(codes, lam, ctx.iterations, g)
+            return (dy if ctx.needs_input_grad[0] else None,
+                    dlam if ctx.needs_input_grad[1] else None, None)
 
 
 def tv_denoise_chw(y0: torch.Tensor, lam, iterations: int = 10) -> torch.Tensor:
@@ -542,8 +545,9 @@ class _FreqDivideFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        diag, rho, out = ctx.saved_tensors
-        return (*freq_divide_vjp(g, diag, rho, out, ctx.eps), None)
+        with vjp_span():
+            diag, rho, out = ctx.saved_tensors
+            return (*freq_divide_vjp(g, diag, rho, out, ctx.eps), None)
 
 
 def freq_divide(F: torch.Tensor, diag: torch.Tensor, rho: torch.Tensor,
@@ -687,7 +691,8 @@ class _AdmmUpdateFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gv, gu):
-        return (*fused_admm_update_vjp(gv, gu, *ctx.saved_tensors, ctx.kind), None)
+        with vjp_span():
+            return (*fused_admm_update_vjp(gv, gu, *ctx.saved_tensors, ctx.kind), None)
 
 
 def fused_admm_update(Kx: torch.Tensor, u: torch.Tensor, lam,
@@ -773,10 +778,11 @@ class _BdotFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        p, q = ctx.saved_tensors
-        g = g.reshape((-1,) + (1,) * (p.ndim - 1))
-        return (g * q if ctx.needs_input_grad[0] else None,
-                g * p if ctx.needs_input_grad[1] else None)
+        with vjp_span():
+            p, q = ctx.saved_tensors
+            g = g.reshape((-1,) + (1,) * (p.ndim - 1))
+            return (g * q if ctx.needs_input_grad[0] else None,
+                    g * p if ctx.needs_input_grad[1] else None)
 
 
 def bdot(p: torch.Tensor, q: torch.Tensor, out: Optional[torch.Tensor] = None,
@@ -869,7 +875,8 @@ class _CgTailFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, gr, gp, grs):
-        return fused_cg_tail_vjp(gx, gr, gp, grs, *ctx.saved_tensors)
+        with vjp_span():
+            return fused_cg_tail_vjp(gx, gr, gp, grs, *ctx.saved_tensors)
 
 
 def fused_cg_tail(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,

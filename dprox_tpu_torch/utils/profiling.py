@@ -10,13 +10,18 @@ Spans and counters (the port's, no JAX counterpart). The solve path opens
 ``span("dprox.prox")`` around every ``ProxFn.prox`` and
 ``span("dprox.xupdate")`` around every x-update, and each iterative solver
 of ``linalg`` adds to ``count("linalg.solves")`` and
-``count("linalg.iterations")``. A span records only while a
-``torch.profiler`` runs (``trace`` below, or any other profile): then it
-is a range in the Chrome trace (a ``cpu_op`` event named after the span),
-on the kernels' clock (the profiler attributes the kernels launched
-inside it to it), and a record that ``span_records()`` returns with its
-host time and the counters it moved. With no profiler running a span is one shared no-op
-context. Counters always count; ``counts()`` reads them.
+``count("linalg.iterations")``. The optic's PSF simulation
+(``contrib.optic.doe_model.simulate_psf``) opens ``span("dprox.optic")``;
+the backward of each of the port's autograd Functions (the kernels' in
+``ops/kernels.py``, ``linalg/solve.py``'s implicit solve) opens
+``span("dprox.vjp")`` and adds to ``count("ops.vjps")`` (``vjp_span``).
+A span records only while a ``torch.profiler`` runs (``trace`` below, or
+any other profile): then it is a range in the Chrome trace (a ``cpu_op``
+event named after the span), on the kernels' clock (the profiler
+attributes the kernels launched inside it to it), and a record that
+``span_records()`` returns with its host time and the counters it moved.
+With no profiler running a span is one shared no-op context. Counters
+always count; ``counts()`` reads them.
 """
 from __future__ import annotations
 
@@ -126,7 +131,8 @@ def count(name: str, n: int = 1) -> None:
 
 def counts() -> Dict[str, int]:
     """A copy of the program counters: ``linalg.solves`` (iterative
-    solves run), ``linalg.iterations`` (their iterations)."""
+    solves run), ``linalg.iterations`` (their iterations), ``ops.vjps``
+    (backwards of the port's autograd Functions run)."""
     return dict(_COUNTS)
 
 
@@ -174,6 +180,13 @@ class _Span:
         record["counts"] = {k: v - before.get(k, 0) for k, v in _COUNTS.items()
                             if v != before.get(k, 0)}
         return False
+
+
+def vjp_span():
+    """``span("dprox.vjp")``, for the body of a backward of one of the
+    port's autograd Functions; adds one to ``ops.vjps`` (always on)."""
+    count("ops.vjps")
+    return span("dprox.vjp")
 
 
 def span_records() -> List[dict]:

@@ -1652,6 +1652,58 @@ def test_optic_bilevel_step_launches_the_admm_update_and_matches_cpu(cuda):
     assert float((grad_d.cpu() - grad_c).abs().max() / grad_c.abs().max()) <= 3e-3
 
 
+def test_codesign_step_at_batch_8_on_cuda_matches_cpu(cuda):
+    """The benchmark's optic_doe step (portbench/configs/optic_doe.py) at
+    its batch of 8 under one [1, 3, h, w] PSF, cut to a 64 patch on a 128
+    wave grid and 3 ADMM iterations: the PSF's OTF broadcast over the batch
+    in conv_doe and the divide, TV's clip codes and backward windows at 24
+    planes. On the card: one divide an iteration, TV under grad and its
+    backward kernel on every prior but the last, one ``ops.vjps`` a
+    backward; the loss to 1e-4 and each gradient to 3e-3 of its largest
+    entry (chip_smoke.py's GRAD_REL_TOL) against the CPU."""
+    from dprox_tpu_torch.contrib.optic import DOEModelConfig, build_doe_model, img_psf_conv
+    from dprox_tpu_torch.utils import profiling
+
+    patch, batch, iters, sigma = 64, 8, 3, 7.65 / 255
+    rng = np.random.RandomState(5)
+    gt = torch.from_numpy(rng.rand(batch, 3, patch, patch).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(batch, 3, patch, patch).astype(np.float32))
+    rhos = torch.log(torch.from_numpy(np.geomspace(0.3, 0.03, iters).astype(np.float32)))
+    sigmas = torch.log(dp.log_descent(80, 30, iters)[1])
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_doe_model(DOEModelConfig(patch_size=patch, wave_resolution=(2 * patch,) * 2,
+                                               sample_interval=2e-6), device=dev)
+        x = dp.Variable()
+        data = dp.sum_squares(dp.conv_doe(x, dp.Placeholder("psf"), circular=True),
+                              b=dp.Placeholder("y"))
+        solver = dp.compile(data + dp.deep_prior(x, "res_ffdnet_color_tv"), "admm", device=dev)
+        hm = model.init_params()["height_map_sqrt"].requires_grad_(True)
+        lr, ls = (t.to(dev).requires_grad_(True) for t in (rhos, sigmas))
+        g, n = gt.to(dev), noise.to(dev)
+        kernels.reset_launches()
+        before = profiling.counts().get("ops.vjps", 0)
+        psf = model.get_psf({"height_map_sqrt": hm})
+        y = img_psf_conv(g, psf, circular=True) + sigma * n
+        xs = solver.solve(x0=y, rhos=torch.exp(lr), lams=torch.exp(ls), max_iter=iters,
+                          params={"psf": psf, "y": y})
+        loss = torch.mean((xs - g) ** 2)
+        grads = torch.autograd.grad(loss, (hm, lr, ls))
+        out[str(dev)] = (float(loss.detach()), [t.cpu().double() for t in grads])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            assert launches["freq_divide"] == iters
+            assert launches["tv_denoise_chw"] == iters
+            assert launches["tv_denoise_chw_vjp"] == iters - 1
+            assert profiling.counts()["ops.vjps"] - before == 2 * iters - 1
+    (lc, gc), (ld, gd) = out["cpu"], out["cuda"]
+    assert abs(ld - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(gd, gc):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max() / b.abs().max()) <= 3e-3
+
+
 def test_hwc_tv_denoising_reaches_the_tv_kernel(cuda):
     """models.tv_denoising ([H, W, B]) launches the TV kernel once and gives
     the plain version's bits; the 3-D form runs the plain ops on the card."""
